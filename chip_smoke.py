@@ -7,7 +7,8 @@ sources there (into build/repro_torch/), then, in phases, each of which
 fails the run:
 
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
-2. build  — compiles every instance of the IAAT GEMM kernel table;
+2. build  — compiles every instance of the kernel table, for the IAAT
+            GEMM and the two grouped kernels (ptxas must report all);
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
@@ -21,13 +22,28 @@ fails the run:
             through the plain arithmetic (the library route computes
             exactly gemm_region_plain's contract + epilogue), logits
             compared;
-6. kernels — times at the main-path shapes, printed as the ``kernels``
-            JSON line.
+6. grouped check — the CUDA batched and ragged grouped kernels against
+            their plain versions for S/H/D: G in {1, 3, 64}, C in
+            {1, 8, 30}, K tails (70) and N overhangs (1408), ragged with
+            empty groups and row tiles of 8 (under the 16-row grain), 16
+            and 128, every table instance once, and moonshot's decode
+            shapes;
+7. moe serve — olmo's weights freed, moonshot-v1-16b-a3b at full width
+            and full depth (48 layers, 64 experts top-6, bf16, 56 GB of
+            random weights) serves 5 requests (after an uncounted warm-up)
+            under ``auto`` and under the forced kernel; both the grouped
+            and the IAAT kernel's launch counts must be > 0 under both;
+8. moe step — one full-width decode step, kernel against the plain
+            arithmetic, logits compared, and the share of (token, layer)
+            expert choices the two runs agree on;
+9. kernels — times at the main-path shapes (olmo's 2-D GEMMs, moonshot's
+            grouped ones), printed as the ``kernels`` JSON line.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
 the script exits non-zero and prints no result.
 """
+import itertools
 import json
 import math
 import pathlib
@@ -44,9 +60,10 @@ OUT_DIR = ROOT / "chiprun_out"
 #: orders; H outputs are bf16, where one rounding step is 2^-8 relative
 TOL = {"S": 1e-5, "D": 1e-12, "H": 8e-3}
 #: full-width decode step, kernel vs plain arithmetic: every projection
-#: rounds to bf16 and a one-step rounding flip in one of 16 layers
+#: rounds to bf16 and a one-step rounding flip in one of 16 (48) layers
 #: propagates; held to 5% of the largest logit
 STEP_TOL = 5e-2
+MOE_ARCH = "moonshot-v1-16b-a3b"
 
 
 def log(msg):
@@ -70,14 +87,22 @@ def phase_build():
     n = kernelgen.install()
     lib = build.build()         # already built: returns its path
     ptx = (lib.parent / "ptxas.log").read_text()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "ptxas.log").write_text(ptx)   # registers, spills per kernel
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptx)]
     spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", ptx))
-    log(f"build: {n} instances in "
-        f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels, max "
-        f"{max(regs)} registers, {spills} bytes spill stores -> {lib}")
-    if len(regs) != len(kernelgen.instances()):
+    per = {name: len(re.findall(rf"Compiling entry function '\w*{name}",
+                                ptx))
+           for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
+                        "ragged_gemm_kernel")}
+    log(f"build: {n} instances x {len(build.SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels "
+        f"{json.dumps(per)}, max {max(regs)} registers, {spills} bytes "
+        f"spill stores -> {lib}")
+    want = len(kernelgen.instances())
+    if len(regs) != 3 * want or any(v != want for v in per.values()):
         raise RuntimeError("ptxas reported another kernel count than the "
-                           "table's instances")
+                           f"table's {want} instances per kernel")
 
 
 def _rel_err(got, want):
@@ -159,57 +184,114 @@ def _main_operands(torch, g, M, K, N, tied, copies=1):
     return x, ws
 
 
-def phase_serve(torch, cfg):
+def _reset_counts():
+    """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
-    from repro_torch.kernels import iaat_gemm
+    from repro_torch.kernels import grouped_gemm, iaat_gemm
+    obs.ROUTES.reset()
+    iaat_gemm.reset_launch_count()
+    grouped_gemm.reset_launch_count()
+
+
+def _counts():
+    from repro_torch.kernels import grouped_gemm, iaat_gemm
+    return {"iaat_gemm": iaat_gemm.launch_count(),
+            "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
+            "ragged_gemm": grouped_gemm.launch_count("ragged_gemm")}
+
+
+def phase_serve(torch, arch, cfg, requests, max_new, kernels):
+    """``arch`` at full width serves ``requests`` prompts under ``auto``
+    and under the forced kernel, after an uncounted warm-up; every kernel
+    in ``kernels`` must have launched in both runs.  Returns the runs'
+    numbers and the weights."""
+    from repro_torch import obs
     from repro_torch.launch import serve as serve_mod
     runs = {}
     # warm-up, not counted: weights, cuBLAS and allocator set-up, first
     # launches
-    params = serve_mod.serve("olmo-1b", requests=1, max_new=2, backend="auto",
+    params = serve_mod.serve(arch, requests=1, max_new=2, backend="auto",
                              seed=0, device="cuda")["params"]
     for backend in ("auto", "kernel"):
-        obs.ROUTES.reset()
-        iaat_gemm.reset_launch_count()
-        r = serve_mod.serve("olmo-1b", requests=6, slots=4, max_new=16,
-                            block_size=16, backend=backend, seed=0,
-                            device="cuda", params=params)
-        launches = iaat_gemm.launch_count()
+        _reset_counts()
+        r = serve_mod.serve(arch, requests=requests, slots=4,
+                            max_new=max_new, block_size=16, backend=backend,
+                            seed=0, device="cuda", params=params)
+        launches = _counts()
         to_kernel, routed = obs.ROUTES.kernel_share()
         params = r["params"]
         done = r["done"]
-        if sorted(done) != list(range(6)):
-            raise AssertionError(f"served {sorted(done)}, want 6 requests")
+        if sorted(done) != list(range(requests)):
+            raise AssertionError(f"served {sorted(done)}, want {requests} "
+                                 "requests")
         for rid, toks in done.items():
-            if not 1 <= len(toks) <= 16 or not all(
+            if not 1 <= len(toks) <= max_new or not all(
                     0 <= t < cfg.vocab_padded for t in toks):
                 raise AssertionError(f"request {rid}: bad tokens {toks}")
-        if launches <= 0:
-            raise AssertionError(f"{backend}: the IAAT kernel never ran")
+        for k in kernels:
+            if launches[k] <= 0:
+                raise AssertionError(f"{arch} {backend}: {k} never ran")
+        per_tok = {k: launches[k] / r["tokens"] for k in kernels}
         runs[backend] = {"tokens": r["tokens"], "seconds": r["seconds"],
-                         "tok_s": r["tok_s"], "launches": launches,
+                         "tok_s": r["tok_s"],
+                         "launches": launches[kernels[0]],
+                         "launch_counts": launches,
+                         "launches_per_token": per_tok,
                          "decode_steps": r["decode_steps"],
-                         "routed": routed, "to_kernel": to_kernel,
-                         "launches_per_token": launches / r["tokens"]}
-        log(f"serve[{backend}]: {r['tokens']} tokens in {r['seconds']:.3f}s "
-            f"= {r['tok_s']:.1f} tok/s, kernel launches {launches} "
-            f"({launches / r['tokens']:.1f}/token), routed GEMMs to the "
-            f"kernel {to_kernel}/{routed} = {to_kernel / routed:.3f}")
+                         "routed": routed, "to_kernel": to_kernel}
+        log(f"serve {arch} [{backend}]: {r['tokens']} tokens in "
+            f"{r['seconds']:.3f}s = {r['tok_s']:.2f} tok/s, "
+            f"{r['decode_steps']} decode steps, launches "
+            f"{json.dumps(launches)}, per token "
+            f"{json.dumps({k: round(v, 2) for k, v in per_tok.items()})}, "
+            f"routed GEMMs to the kernel {to_kernel}/{routed} = "
+            f"{to_kernel / routed:.4f}")
         runs[backend]["done"] = done
     same = sum(runs["auto"]["done"][i] == runs["kernel"]["done"][i]
-               for i in range(6))
-    log(f"serve: {same}/6 requests token-identical between auto and kernel")
+               for i in range(requests))
+    log(f"serve {arch}: {same}/{requests} requests token-identical between "
+        "auto and kernel")
     for v in runs.values():
         v.pop("done")
     return runs, params
 
 
+class _ExpertChoices:
+    """Wraps ``layers._top_k`` (the MoE router's top-k) for one decode
+    step: records each layer's chosen experts, or, given the choices of
+    an earlier run, returns those instead (the pinned run)."""
+
+    def __init__(self, layers, pinned=None):
+        self.layers, self.pinned, self.seen = layers, pinned, []
+
+    def __enter__(self):
+        self.orig = self.layers._top_k
+
+        def top_k(probs, k):
+            if self.pinned is not None:
+                idx = self.pinned[len(self.seen)]
+                vals = probs.gather(-1, idx)
+            else:
+                vals, idx = self.orig(probs, k)
+            self.seen.append(idx)
+            return vals, idx
+        self.layers._top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        self.layers._top_k = self.orig
+
+
 def phase_step(torch, cfg, params):
     """One decode step over 4 slots after a prefill of each, through the
-    kernel and through the plain arithmetic, on identical pool copies."""
+    kernel and through the plain arithmetic, on identical pool copies.
+    For an MoE model, also the share of (token, layer) top-k expert sets
+    the two runs agree on; if a flipped choice puts the logits past the
+    tolerance, the plain run is repeated pinned to the kernel run's
+    choices, and the result says so."""
     import copy
     from repro_torch import api
-    from repro_torch.models import lm
+    from repro_torch.models import layers, lm
     kern, plain = api.Policy(backend="kernel"), api.Policy(backend="library")
     BS, slots, nmax = 16, 4, 4
     ps = lm.init_paged_state(cfg, 1 + slots * nmax, BS, slots,
@@ -218,6 +300,8 @@ def phase_step(torch, cfg, params):
     tables = torch.arange(1, 1 + slots * nmax, device="cuda").reshape(
         slots, nmax)
     lens = [5, 12, 20, 9]
+    moe = cfg.family == "moe"
+    out = {"name": cfg.name}
     with torch.no_grad():
         for s, n in enumerate(lens):
             toks = torch.randint(0, cfg.vocab, (1, 32), generator=g,
@@ -228,22 +312,52 @@ def phase_step(torch, cfg, params):
         cur = torch.randint(0, cfg.vocab, (slots, 1), generator=g,
                             device="cuda")
         pos = torch.tensor(lens, device="cuda")
-        ps2 = copy.deepcopy(ps)
-        lk = lm.paged_decode(params, cfg, kern, cur, ps, tables, pos)
-        lp = lm.paged_decode(params, cfg, plain, cur, ps2, tables, pos)
+        ps2, ps3 = copy.deepcopy(ps), copy.deepcopy(ps)
+        with _ExpertChoices(layers) as ck:
+            lk = lm.paged_decode(params, cfg, kern, cur, ps, tables, pos)
+        with _ExpertChoices(layers) as cp:
+            lp = lm.paged_decode(params, cfg, plain, cur, ps2, tables, pos)
         torch.cuda.synchronize()
+        ab, rel = _rel_err(lk, lp)
+        if moe:
+            same = torch.stack([
+                (a.sort(-1).values == b.sort(-1).values).all(-1)
+                for a, b in zip(ck.seen, cp.seen)])      # (layers, tokens)
+            out["expert_sets_agree"] = same.float().mean().item()
+            out["expert_sets_flipped"] = int((~same).sum().item())
+            out["expert_sets"] = same.numel()
+            out["flipped_per_layer"] = (~same).sum(-1).tolist()
+            first = next((i for i, n in enumerate(out["flipped_per_layer"])
+                          if n), None)
+            log(f"step {cfg.name}: (token, layer) top-{cfg.moe.top_k} expert "
+                f"sets agreeing kernel vs plain: "
+                f"{out['expert_sets_agree']:.4f} "
+                f"({out['expert_sets_flipped']} of {same.numel()} flipped, "
+                f"the first in layer {first})")
+            out["pinned"] = False
+            if not rel <= STEP_TOL and out["expert_sets_flipped"]:
+                log(f"step {cfg.name}: rel err {rel:.3g} > {STEP_TOL} with "
+                    "flipped expert choices: plain run repeated pinned to "
+                    "the kernel run's choices")
+                out["unpinned_rel_err"] = rel
+                with _ExpertChoices(layers, pinned=ck.seen):
+                    lp = lm.paged_decode(params, cfg, plain, cur, ps3,
+                                         tables, pos)
+                torch.cuda.synchronize()
+                ab, rel = _rel_err(lk, lp)
+                out["pinned"] = True
     if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
         raise AssertionError("non-finite logits")
     if tuple(lk.shape) != (slots, 1, cfg.vocab_padded):
         raise AssertionError(f"logits shape {tuple(lk.shape)}")
-    ab, rel = _rel_err(lk, lp)
     agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    log(f"step: full-width paged_decode kernel vs plain: max abs err "
-        f"{ab:.4g}, rel {rel:.3g} (tol {STEP_TOL}), argmax agreement "
+    log(f"step {cfg.name}: full-width paged_decode kernel vs plain: max abs "
+        f"err {ab:.4g}, rel {rel:.3g} (tol {STEP_TOL}), argmax agreement "
         f"{agree:.2f}")
     if not rel <= STEP_TOL:
         raise AssertionError(f"decode step rel err {rel} > {STEP_TOL}")
-    return {"max_abs_err": ab, "rel_err": rel, "argmax_agree": agree}
+    out.update({"max_abs_err": ab, "rel_err": rel, "argmax_agree": agree})
+    return out
 
 
 def _time_ms(torch, fn, n_rep, warm=3):
@@ -329,6 +443,258 @@ def phase_kernels(torch, cfg, launches, max_abs_err):
     return entry, rows
 
 
+def _grouped_decode_shapes(mcfg):
+    """(K, N) of the MoE model's expert GEMMs with their count per layer:
+    gate and up (d, f), down (f, d)."""
+    d, f = mcfg.d_model, mcfg.moe.d_expert
+    return {(d, f): 2, (f, d): 1}
+
+
+def _decode_counts(torch, mcfg, tokens=4, seed=5):
+    """Rows per expert of one decode step over ``tokens`` slots, each
+    choosing top-k distinct experts (drawn from ``seed``)."""
+    E, k = mcfg.moe.num_experts, mcfg.moe.top_k
+    g = torch.Generator().manual_seed(seed)
+    counts = [0] * E
+    for _ in range(tokens):
+        for e in torch.randperm(E, generator=g)[:k].tolist():
+            counts[e] += 1
+    return counts
+
+
+def _ragged_operands(torch, g, counts, bm, K, N, dt, empty_tile, G=None):
+    """x (T, K) group-contiguous for ``counts`` rows per group, each
+    group's rows padded with zeros to whole tiles of ``bm``; an empty
+    group gets one zero tile when ``empty_tile`` (the reference's
+    layout), none otherwise, and groups past ``len(counts)`` get none.
+    w (G, K, N); tile group ids on the card."""
+    xs, gids = [], []
+    for e, c in enumerate(counts):
+        tiles = -(-c // bm) if c else int(empty_tile)
+        if not tiles:
+            continue
+        blk = torch.randn((tiles * bm, K), generator=g, device="cuda")
+        blk[c:] = 0
+        xs.append(blk)
+        gids += [e] * tiles
+    w = torch.randn((G or len(counts), K, N), generator=g, device="cuda")
+    return (torch.cat(xs).to(dt), (w / math.sqrt(K)).to(dt),
+            torch.tensor(gids, dtype=torch.int32, device="cuda"))
+
+
+def phase_grouped_check(torch, mcfg):
+    """The batched and ragged kernels against their plain versions.
+    Returns the max abs errors at the MoE decode shapes and the ragged
+    kernel's launches here (no model calls it)."""
+    from repro_torch.core import kernelgen
+    from repro_torch.kernels import grouped_gemm as gg
+    _reset_counts()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dts = {"S": torch.float32, "D": torch.float64, "H": torch.bfloat16}
+    worst = {}
+
+    def check(name, letter, got, want, what):
+        torch.cuda.synchronize()
+        ab, rel = _rel_err(got, want)
+        key = f"{name} {letter}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        if not rel <= TOL[letter]:
+            raise AssertionError(f"{name} {letter} {what}: rel err {rel} > "
+                                 f"{TOL[letter]}")
+        return ab
+
+    def batched_operands(G, C, K, N, dt):
+        x = torch.randn((G, C, K), generator=g, device="cuda").to(dt)
+        w = torch.randn((G, K, N), generator=g, device="cuda")
+        return x, (w / math.sqrt(K)).to(dt)
+
+    for letter, dt in dts.items():
+        for G, C, K in itertools.product((1, 3, 64), (1, 8, 30),
+                                         (70, 1408)):
+            x, w = batched_operands(G, C, K, 1408, dt)
+            check("batched", letter, gg.batched_gemm(x, w),
+                  gg.batched_gemm_plain(x, w), f"G={G} C={C} K={K} N=1408")
+        for bm, K in itertools.product((8, 16, 128), (70, 1408)):
+            # groups 0 and 3 empty (one zero tile), 6 and 7 with no tile
+            x, w, ids = _ragged_operands(torch, g, [0, 5, 17, 0, 40, 3], bm,
+                                         K, 1408, dt, empty_tile=True, G=8)
+            check("ragged", letter, gg.ragged_gemm(x, w, ids, bm=bm),
+                  gg.ragged_gemm_plain(x, w, ids, bm),
+                  f"tile {bm} K={K} N=1408")
+        for (lt, bm, bn, bk) in kernelgen.instances():
+            if lt != letter:
+                continue
+            x, w = batched_operands(3, 30, 70, 300, dt)
+            check("batched", letter,
+                  gg.batched_gemm(x, w, blocks=(bm, bn, bk)),
+                  gg.batched_gemm_plain(x, w), f"instance {bm}x{bn}x{bk}")
+            x, w, ids = _ragged_operands(torch, g, [0, 5, 17], 8, 70, 300,
+                                         dt, empty_tile=True)
+            check("ragged", letter,
+                  gg.ragged_gemm(x, w, ids, bm=8, blocks=(bm, bn, bk)),
+                  gg.ragged_gemm_plain(x, w, ids, 8),
+                  f"instance {bm}x{bn}x{bk}")
+    main = {"batched_gemm": 0.0, "ragged_gemm": 0.0}
+    E = mcfg.moe.num_experts
+    C = _decode_capacity(mcfg)
+    counts = _decode_counts(torch, mcfg)
+    for (K, N) in _grouped_decode_shapes(mcfg):
+        x, w = batched_operands(E, C, K, N, torch.bfloat16)
+        ab = check("batched", "H", gg.batched_gemm(x, w),
+                   gg.batched_gemm_plain(x, w), f"decode {E}x{C}x{K}x{N}")
+        main["batched_gemm"] = max(main["batched_gemm"], ab)
+        x, w, ids = _ragged_operands(torch, g, counts, 8, K, N,
+                                     torch.bfloat16, empty_tile=False)
+        ab = check("ragged", "H", gg.ragged_gemm(x, w, ids, bm=8),
+                   gg.ragged_gemm_plain(x, w, ids, 8),
+                   f"decode T={x.shape[0]} K={K} N={N}")
+        main["ragged_gemm"] = max(main["ragged_gemm"], ab)
+        log(f"check grouped decode K={K} N={N}: batched ({E}, {C}) max abs "
+            f"err {main['batched_gemm']:.4g}, ragged {x.shape[0]} rows in "
+            f"{ids.numel()} tiles of 8 max abs err {main['ragged_gemm']:.4g}")
+    launches = _counts()
+    log("check grouped: worst rel err (tol S 1e-5, H 8e-3, D 1e-12): "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"; launches {json.dumps(launches)}")
+    return main, launches["ragged_gemm"]
+
+
+def _decode_capacity(mcfg, slots=4):
+    from repro_torch.models import layers
+    return layers._capacity(slots, mcfg.moe)
+
+
+def _grouped_mm_library(torch, x, w, ids, bm):
+    """The one PyTorch call that computes the ragged product:
+    ``torch._grouped_mm`` of x (T, K) with w (G, K, N) at row offsets.  The
+    tile ids are ascending and group-contiguous, so group g's rows end at
+    bm times the number of tiles with an id <= g.  Returns (call, its
+    output), or (None, the library's error) if it refuses the layout."""
+    offs = (torch.bincount(ids.long(), minlength=w.shape[0]).cumsum(0)
+            * bm).to(torch.int32)
+    try:
+        out = torch._grouped_mm(x, w, offs=offs)
+    except RuntimeError as e:
+        return None, str(e)
+    return (lambda: torch._grouped_mm(x, w, offs=offs)), out
+
+
+def phase_grouped_kernels(torch, mcfg, launches, errs):
+    """Kernel / plain / library times and the bound of the grouped kernels
+    at the MoE decode shapes (one batched call reads all experts' weights,
+    >= 369 MB, over 7 x the 50 MB L2, so every call reads from HBM).  The
+    line's numbers are one decode step's expert GEMMs (layers x gate, up,
+    down), summed: as equal-capacity groups for batched_gemm, as the
+    dropless ragged layout of the same 4 tokens for ragged_gemm.  The
+    library calls are torch.bmm and torch._grouped_mm; the latter's
+    output is first held against the plain version."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import grouped_gemm as gg
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    E, C, L = mcfg.moe.num_experts, _decode_capacity(mcfg), mcfg.n_layers
+    counts = _decode_counts(torch, mcfg)
+    rows = []
+    step = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+                "bytes": 0} for n in ("batched_gemm", "ragged_gemm")}
+    library = {}
+    for (K, N), per_layer in _grouped_decode_shapes(mcfg).items():
+        x = torch.randn((E, C, K), generator=g, device="cuda").to(bf)
+        w = (torch.randn((E, K, N), generator=g, device="cuda") /
+             math.sqrt(K)).to(bf)
+        blocks = gg.pick_blocks(C, K, N, bf)
+        xr, wr, ids = _ragged_operands(torch, g, counts, 8, K, N, bf,
+                                       empty_tile=False)
+        T, groups = xr.shape[0], len(set(ids.tolist()))
+        rblocks = gg.pick_blocks(8, K, N, bf)
+        lib_call, lib_out = _grouped_mm_library(torch, xr, wr, ids, 8)
+        if lib_call is None:
+            log(f"library torch._grouped_mm refused the ragged layout "
+                f"K={K} N={N}: {lib_out}")
+            library[(K, N)] = lib_out
+        else:
+            _, rel = _rel_err(lib_out, gg.ragged_gemm_plain(xr, wr, ids, 8))
+            log(f"library torch._grouped_mm K={K} N={N} vs plain: rel err "
+                f"{rel:.3g} (tol {TOL['H']})")
+            if not rel <= TOL["H"]:
+                raise AssertionError(f"torch._grouped_mm K={K} N={N}: rel "
+                                     f"err {rel}")
+            library[(K, N)] = "ok"
+        # the ragged launch alone: the wrapper's id check reads the ids
+        # back to the host once a call, which would idle the card here
+        times = {
+            "batched_gemm": (
+                _time_ms(torch, lambda i: gg.batched_gemm(x, w, blocks=blocks),
+                         20),
+                _time_ms(torch, lambda i: gg.batched_gemm_plain(x, w), 20),
+                _time_ms(torch, lambda i: torch.bmm(x, w), 20)),
+            "ragged_gemm": (
+                _time_ms(torch, lambda i: gg._launch_ragged(
+                    xr, wr, ids, 8, rblocks), 20),
+                _time_ms(torch, lambda i: gg.ragged_gemm_plain(xr, wr, ids,
+                                                               8), 20),
+                None if lib_call is None else
+                _time_ms(torch, lambda i: lib_call(), 20)),
+        }
+        work = {   # bytes: each input read once (ragged: the groups used)
+            "batched_gemm": (2 * E * C * K * N,
+                             2 * (E * C * K + E * K * N + E * C * N)),
+            "ragged_gemm": (2 * T * K * N,
+                            2 * (T * K + groups * K * N + T * N)),
+        }
+        for name, (t_k, t_p, t_l) in times.items():
+            flops, nbytes = work[name]
+            b_s = max(flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW)
+            row = {"kernel": name, "K": K, "N": N, "ms": t_k,
+                   "plain_ms": t_p, "library_ms": t_l,
+                   "bound_ms": b_s * 1e3, "flops": flops, "bytes": nbytes}
+            if name == "ragged_gemm":
+                row.update(rows=T, groups=groups)
+            rows.append(row)
+            log(f"kernel time {name} H K={K} N={N}"
+                + (f" ({T} rows, {groups} groups)" if name == "ragged_gemm"
+                   else f" ({E} x {C} rows)")
+                + f": kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                + ("library torch._grouped_mm" if name == "ragged_gemm"
+                   else "library torch.bmm")
+                + (" refused" if t_l is None else f" {t_l:.4f} ms")
+                + f", bound {b_s * 1e3:.4f} ms")
+            n = per_layer * L
+            st = step[name]
+            st["ms"] += n * t_k
+            st["plain_ms"] += n * t_p
+            st["library_ms"] = None if t_l is None or st["library_ms"] is \
+                None else st["library_ms"] + n * t_l
+            st["flops"] += n * flops
+            st["bytes"] += n * nbytes
+    entries = []
+    for name, line in (("batched_gemm", 64), ("ragged_gemm", 112)):
+        st = step[name]
+        t_ops, t_bytes = st["flops"] / cost.PEAK_FLOPS_BF16, \
+            st["bytes"] / cost.HBM_BW
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "replaces": f"src/repro/kernels/grouped_gemm.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": errs[name],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": st["library_ms"],
+            "at": f"one {mcfg.name} decode step's expert GEMMs ({L} layers "
+                  "x gate, up, down), bf16, summed"
+                  + (f"; {E} groups of C={C}" if name == "batched_gemm" else
+                     "; dropless ragged layout of 4 tokens x top-"
+                     f"{mcfg.moe.top_k}, row tiles of 8"),
+        })
+    entries[1]["library"] = "torch._grouped_mm; " + " / ".join(
+        f"K={K} N={N}: {v}" for (K, N), v in library.items())
+    return entries, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -342,6 +708,7 @@ def main():
     sys.path.insert(0, str(src))
     from repro_torch import configs
     cfg = configs.get_config("olmo-1b")
+    mcfg = configs.get_config(MOE_ARCH)
     MAIN_SHAPES[:] = [(cfg.d_model, cfg.d_model, False),
                       (cfg.d_model, cfg.d_ff, False),
                       (cfg.d_ff, cfg.d_model, False),
@@ -351,28 +718,51 @@ def main():
     t_start = time.perf_counter()
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
+    phase_s = report["phase_seconds"] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     try:
-        report["card"] = phase_card()
-        phase_build()
-        max_err = phase_check(torch)
-        report["serve"], params = phase_serve(torch, cfg)
-        report["step"] = phase_step(torch, cfg, params)
+        report["card"] = timed("card", phase_card)
+        timed("build", phase_build)
+        max_err = timed("check", phase_check, torch)
+        report["serve"], params = timed("serve", phase_serve, torch,
+                                        "olmo-1b", cfg, 6, 16, ["iaat_gemm"])
+        report["step"] = timed("step", phase_step, torch, cfg, params)
         del params
         torch.cuda.empty_cache()
-        entry, rows = phase_kernels(torch, cfg,
-                                    report["serve"]["auto"]["launches"],
-                                    max_err)
+        grouped_err, ragged_launches = timed("grouped check",
+                                             phase_grouped_check, torch, mcfg)
+        report["moe_serve"], params = timed(
+            "moe serve", phase_serve, torch, MOE_ARCH, mcfg, 5, 8,
+            ["batched_gemm", "iaat_gemm"])
+        report["moe_step"] = timed("moe step", phase_step, torch, mcfg,
+                                   params)
+        del params
+        torch.cuda.empty_cache()
+        entry, rows = timed("kernels", phase_kernels, torch, cfg,
+                            report["serve"]["auto"]["launches"], max_err)
+        launches = {"batched_gemm": report["moe_serve"]["auto"]["launches"],
+                    "ragged_gemm": ragged_launches}
+        grouped, grouped_rows = timed("grouped kernels",
+                                      phase_grouped_kernels, torch, mcfg,
+                                      launches, grouped_err)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    report["kernels"] = [entry]
-    report["shapes"] = rows
+    report["kernels"] = [entry] + grouped
+    report["shapes"] = rows + grouped_rows
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
-    log(f"chip_smoke: all phases passed in {report['seconds']:.1f}s")
-    print(json.dumps({"kernels": [entry]}))
+    log(f"chip_smoke: all phases passed in {report['seconds']:.1f}s: "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
+    print(json.dumps({"kernels": report["kernels"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,17 +6,21 @@ input-aware decision layer picks the kernel for every small GEMM:
 * :class:`Policy` — one frozen routing config; one ambient policy
   (:func:`install` / :func:`using`) and a per-call ``policy=`` override.
 * :class:`Router` — ``route(op, dims, dtype) -> Decision`` for ``gemm``
-  (2-D BLAS) and ``matmul`` (ND, leading dims flatten into M).  The
-  grouped ops (``batched_gemm``, ``ragged_gemm``) are not ported yet.
+  (2-D BLAS), ``matmul`` (ND, leading dims flatten into M),
+  ``batched_gemm`` (equal-capacity grouped) and ``ragged_gemm``
+  (group-contiguous rows).  A grouped decision carries its block
+  instance in ``Decision.blocks`` (``grouped_gemm.pick_blocks``).
 
 Decision precedence:  forced (backend="kernel"/"library")  >  profile
 (backend="tuned", not ported: raises)  >  analytical (smallness).
 
-Executors (:func:`gemm`, :func:`matmul`) act on the Decision: the kernel
-path runs the plan through the hand-written CUDA kernel
-(``kernels/iaat_gemm.py``), the library path runs ``torch.matmul`` in the
-accumulator dtype (the ``_xla_gemm`` epilogue rule), with TF32 off from
-:func:`install` on.
+Executors (:func:`gemm`, :func:`matmul`, :func:`batched_gemm`,
+:func:`ragged_gemm`) act on the Decision: the kernel path runs the plan
+through the hand-written CUDA kernel (``kernels/iaat_gemm.py``) or the
+grouped kernels (``kernels/grouped_gemm.py``); the 2-D library path runs
+``torch.matmul`` in the accumulator dtype (the ``_xla_gemm`` epilogue
+rule), the grouped one the reference's plain einsum in the operand dtype,
+with TF32 off from :func:`install` on.
 Every ``route`` call lands in :data:`repro_torch.obs.ROUTES`.
 """
 from __future__ import annotations
@@ -24,13 +28,14 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch import obs
 from repro_torch.core import (cost, kernelgen, paper_table, plan as plan_mod,
                               templates)
+from repro_torch.kernels import grouped_gemm as _gg
 
 #: Cube edge at which a bf16 GEMM on an H100 turns from bytes-bound to
 #: operations-bound: a cube n^3 moves 8n^2 bytes for 2n^3 flops, so its
@@ -52,7 +57,10 @@ MAX_PLAN_REGIONS = 64
 #: Op kinds the router understands, with their ``dims`` convention:
 #:   gemm          (M, N, K)            2-D BLAS entry
 #:   matmul        (*lead, K, N)        x.shape + (N,); M = prod(lead)
-OPS = ("gemm", "matmul")
+#:   batched_gemm  (G, C, K, N)         per-group problem is (C, K, N)
+#:   ragged_gemm   (G, bm, K, N)        per-tile problem is (bm, K, N)
+OPS = ("gemm", "matmul", "batched_gemm", "ragged_gemm")
+_GROUPED = ("batched_gemm", "ragged_gemm")
 BACKENDS = ("kernel", "library", "auto", "tuned")
 
 
@@ -63,7 +71,8 @@ class Policy:
     ``backend``: ``kernel`` forces the IAAT kernel, ``library`` forces
     ``torch.matmul``, ``auto`` applies the analytical criterion, ``tuned``
     (route by a measured profile) raises until ``tune/`` is ported.
-    ``iaat=False`` sends model matmuls straight to ``torch.matmul``.
+    ``iaat=False`` sends model matmuls straight to ``torch.matmul``; the
+    MoE expert FFN's grouped GEMMs still follow ``backend``.
     """
     backend: str = "auto"
     paper_thresholds: bool = False  # use the ARMv8 80/32 bounds verbatim
@@ -83,6 +92,13 @@ class Policy:
                 else paper_table.PAPER_SMALL_THRESHOLD)
         return base if self.paper_thresholds else base * HOPPER_SCALE
 
+    @property
+    def use_kernels(self) -> bool:
+        """True when the grouped paths (the MoE expert FFN) call the
+        grouped executors, i.e. under every backend but the forced
+        library; the reference's ``Policy.pallas``."""
+        return self.backend != "library"
+
     def replace(self, **kw) -> "Policy":
         return dataclasses.replace(self, **kw)
 
@@ -94,6 +110,7 @@ class Decision:
     use_kernel: bool
     source: str                    # "forced" | "analytical"
     op: str = "gemm"
+    blocks: Optional[Tuple[int, int, int]] = None  # grouped table instance
 
 
 # --------------------------------------------------------------------------
@@ -169,6 +186,13 @@ def small_enough(M: int, N: int, K: int, trans: str = "NN",
 # The router.
 # --------------------------------------------------------------------------
 
+def _grouped_problem(op: str, dims) -> Tuple[int, int, int, int]:
+    if len(dims) != 4:
+        raise ValueError(f"{op} dims must be (G, C|bm, K, N), got {dims}")
+    G, C, K, N = (int(d) for d in dims)
+    return G, C, K, N
+
+
 class Router:
     """Routes every GEMM-shaped op through one decision path."""
 
@@ -205,6 +229,8 @@ class Router:
     @staticmethod
     def _decide(op: str, dims, letter: str, trans: str,
                 pol: Policy) -> Decision:
+        if op in _GROUPED:
+            return Router._route_grouped(op, dims, letter, pol)
         if op == "matmul":
             if len(dims) < 2:
                 raise ValueError(f"matmul dims must be (*lead, K, N), "
@@ -221,6 +247,26 @@ class Router:
         use = small_enough(M, N, K, trans, pol) and plan_mod.build_plan(
             M, N, K, letter, trans).num_kernel_calls <= MAX_PLAN_REGIONS
         return Decision(use, "analytical", op)
+
+    @staticmethod
+    def _route_grouped(op: str, dims, letter: str,
+                       pol: Policy) -> Decision:
+        """Grouped ops: the per-group (C, K, N) problem is the routing unit
+        (for ragged, the per-tile (bm, K, N)); the table instance travels
+        in ``Decision.blocks``, populated under every backend because the
+        kernel entries need it.  Letters without a kernel get none."""
+        G, C, K, N = _grouped_problem(op, dims)
+        blocks = None
+        if letter in kernelgen.KERNEL_LETTERS:
+            dtype = {**kernelgen.BLAS_DTYPES,
+                     **kernelgen.FRAMEWORK_DTYPES}[letter]
+            blocks = _gg.pick_blocks(C, K, N, dtype)
+        if pol.backend == "kernel":
+            return Decision(True, "forced", op, blocks)
+        if pol.backend == "library":
+            return Decision(False, "forced", op, blocks)
+        return Decision(small_enough(C, N, K, "NN", pol), "analytical", op,
+                        blocks)
 
 
 _ROUTER = Router()
@@ -311,3 +357,36 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     else:
         out = _plan_gemm(x2, w, None, 1.0, 0.0, "NN")
     return out.reshape(*lead, w.shape[-1])
+
+
+def batched_gemm(x: torch.Tensor, w: torch.Tensor, *,
+                 policy: Optional[Policy] = None) -> torch.Tensor:
+    """Equal-capacity grouped GEMM: x (G, C, K) @ w (G, K, N) -> (G, C, N),
+    routed per the per-group problem; the library path is the reference's
+    plain batched einsum in the operand dtype."""
+    pol = _resolve(policy)
+    G, C, K = x.shape
+    N = w.shape[-1]
+    d = route("batched_gemm", (G, C, K, N),
+              torch.promote_types(x.dtype, w.dtype), policy=pol)
+    if not d.use_kernel:
+        return torch.einsum("gck,gkn->gcn", x, w)
+    return _gg.batched_gemm(x, w, blocks=d.blocks)
+
+
+def ragged_gemm(x: torch.Tensor, w: torch.Tensor,
+                tile_group_ids: torch.Tensor, *, bm: int = 128,
+                policy: Optional[Policy] = None) -> torch.Tensor:
+    """Ragged grouped GEMM (group-contiguous rows in row tiles of ``bm``):
+    x (T, K) @ w (G, K, N) -> (T, N); the library path gathers each
+    tile's group weight and einsums, as the reference's does."""
+    pol = _resolve(policy)
+    T, K = x.shape
+    G, _, N = w.shape
+    d = route("ragged_gemm", (G, bm, K, N),
+              torch.promote_types(x.dtype, w.dtype), policy=pol)
+    if not d.use_kernel:
+        wt = w[tile_group_ids.long()]              # (T // bm, K, N)
+        xt = x.reshape(-1, bm, K)
+        return torch.einsum("tbk,tkn->tbn", xt, wt).reshape(T, N)
+    return _gg.ragged_gemm(x, w, tile_group_ids, bm=bm, blocks=d.blocks)

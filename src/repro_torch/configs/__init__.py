@@ -1,7 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
 Arch ids use the dashed names; module files use underscores.  Only the
-dense architectures the port serves are registered so far.
+architectures the port serves are registered so far.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS: List[str] = [
     "olmo-1b",
+    "moonshot-v1-16b-a3b",
 ]
 
 

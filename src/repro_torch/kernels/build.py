@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels (nvcc by hand, bound by ctypes).
 
-At first use :func:`load` compiles ``csrc/iaat_gemm.cu`` once per letter
-(S, D, H — one ``nvcc`` each, all started together), each object holding
-the template instances the install-time table (``core.kernelgen``) lists
-for that letter, and links them into one shared library with a plain C
-interface.  The library lands in ``build/repro_torch/<key>/`` at the root
-of the checkout, where ``key`` hashes the sources, the generated instance
-lists and the flags, so an edit to any of them rebuilds and nothing stale
-is ever loaded.  Without ``nvcc`` it raises: a CUDA run never goes on
-without its kernels.
+At first use :func:`load` compiles each source of :data:`SOURCES`
+(``csrc/iaat_gemm.cu``, ``csrc/grouped_gemm.cu``, both on the shared
+``csrc/tile.cuh``) once per letter (S, D, H — one ``nvcc`` each, all six
+started together), each object holding the template instances the
+install-time table (``core.kernelgen``) lists for that letter, and links
+them into one shared library with a plain C interface.  The library lands
+in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
+hashes the sources, the generated instance lists and the flags, so an
+edit to any of them rebuilds and nothing stale is ever loaded.  Without
+``nvcc`` it raises: a CUDA run never goes on without its kernels.
 """
 from __future__ import annotations
 
@@ -28,6 +29,9 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torc
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.KERNEL_LETTERS)}
+#: kernel sources, each built once per letter; the C entries they export
+#: are ``<stem>_<letter>``
+SOURCES = ("iaat_gemm", "grouped_gemm")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -75,13 +79,16 @@ def build() -> pathlib.Path:
     work = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     for letter, text in _tables().items():
         (work / f"iaat_table_{letter}.inc").write_text(text)
-    procs = []
-    for letter, code in _LETTER_CODE.items():
-        cmd = [nvcc, *NVCC_FLAGS, f"-DIAAT_LETTER={code}", f"-I{work}",
-               "-c", str(CSRC / "iaat_gemm.cu"), "-o", str(work / f"{letter}.o")]
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True)))
+    procs, objs = [], []
+    for src in SOURCES:
+        for letter, code in _LETTER_CODE.items():
+            obj = str(work / f"{src}_{letter}.o")
+            cmd = [nvcc, *NVCC_FLAGS, f"-DIAAT_LETTER={code}", f"-I{work}",
+                   "-c", str(CSRC / f"{src}.cu"), "-o", obj]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT,
+                                                text=True)))
     log = []
     failed = None
     for cmd, p in procs:
@@ -92,7 +99,6 @@ def build() -> pathlib.Path:
     (work / "ptxas.log").write_text("".join(log))
     if failed is not None:
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}")
-    objs = [str(work / f"{letter}.o") for letter in _LETTER_CODE]
     res = subprocess.run([nvcc, "-shared", *objs, "-o",
                           str(work / lib.name)],
                          capture_output=True, text=True)
@@ -113,11 +119,19 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, ll, i, d = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
             ctypes.c_double
-        for letter in kernelgen.KERNEL_LETTERS:
-            fn = getattr(lib, f"iaat_gemm_{letter}")
-            fn.argtypes = [i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
-                           i, i, i, d, d, p]
-            fn.restype = i
+        argtypes = {
+            "iaat_gemm": [i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
+                          i, i, i, d, d, p],
+            "batched_gemm": [i, i, i, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll,
+                             ll, i, i, i, i, p],
+            "ragged_gemm": [i, i, i, p, ll, ll, p, ll, ll, ll, p, i, i, p, ll,
+                            ll, i, i, p],
+        }
+        for stem, types in argtypes.items():
+            for letter in kernelgen.KERNEL_LETTERS:
+                fn = getattr(lib, f"{stem}_{letter}")
+                fn.argtypes = types
+                fn.restype = i
         lib.iaat_error_string.argtypes = [i]
         lib.iaat_error_string.restype = ctypes.c_char_p
         _LIB = lib

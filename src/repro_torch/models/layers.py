@@ -1,5 +1,6 @@
 """Transformer layers for paged serving: GQA attention over a paged KV
-pool and the gated MLP (counterpart of ``repro/models/layers.py``).
+pool, the gated MLP and the MoE layer (counterpart of
+``repro/models/layers.py``).
 
 Every projection goes through ``common.mm`` (the IAAT dispatch hook).
 Weights keep the reference's ``(d_in, d_out)`` layout, so every GEMM shape
@@ -10,11 +11,13 @@ identity in paged serving depends on them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import api
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import mm, rope
@@ -130,3 +133,136 @@ def mlp(p, x, be: Policy):
     """Gated MLP (SwiGLU)."""
     h = F.silu(mm(x, p.wg, be)) * mm(x, p.wu, be)
     return mm(h, p.wd, be)
+
+
+# --------------------------------------------------------------------------
+# MoE: top-k routing, sort-based capacity dispatch, grouped small GEMM.
+# Only the reference's single-shard branch is ported; the per-data-shard
+# vmapped branch waits for ``parallel/``.
+# --------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, ninit):
+    """(router, w_gate, w_up, w_down) with the reference's shapes and
+    scales (``layers.py::init_moe``); ``ninit(shape, scale, dtype)`` draws
+    them.  The router is f32; the experts take the compute dtype."""
+    m = cfg.moe
+    d, E, f = cfg.d_model, m.num_experts, m.d_expert
+    cdt = cfg.compute_dtype
+    s = 1.0 / math.sqrt(d)
+    sd = 1.0 / math.sqrt(f) / math.sqrt(2.0 * cfg.n_layers)
+    return (ninit((d, E), s, torch.float32), ninit((E, d, f), s, cdt),
+            ninit((E, d, f), s, cdt), ninit((E, f, d), sd, cdt))
+
+
+def _capacity(T: int, m) -> int:
+    c = int(math.ceil(T * m.top_k / m.num_experts * m.capacity_factor))
+    # the reference's grain: 128-multiples from 128 on, else 8-multiples
+    grain = 128 if c >= 128 else 8
+    return max(grain, -(c // -grain) * grain)
+
+
+def _top_k(probs, k: int):
+    """``lax.top_k``: the k largest along the last dim, ties to the lower
+    index (a stable descending sort; ``torch.topk`` leaves tie order
+    unspecified)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_dispatch(router, xf, cfg: ModelConfig, C: int):
+    """Route + sort + capacity for one token shard.  xf: (T, d).
+
+    Returns (buf (E, C, d), combine metadata, aux).  Each kept (token,
+    expert) pair gets slot ``e * C + rank``; a pair past its expert's
+    capacity goes to the sink index ``E * C``.  The reference's scatters
+    with ``mode="drop"`` write duplicates only to the sink, which both
+    packages discard, so plain ``index_put_`` into an ``E*C + 1`` buffer
+    is the same map."""
+    m = cfg.moe
+    T, d = xf.shape
+    E, k = m.num_experts, m.top_k
+    dev = xf.device
+
+    # the router stays f32 (an f32 matmul, TF32 off): not a routed GEMM
+    logits = torch.matmul(xf.float(), router)                     # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, k)                               # (T, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(-1)                                    # (T*k,)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    stok = torch.div(torch.arange(T * k, device=dev), k,
+                     rounding_mode="floor")[order]
+    counts = torch.bincount(flat_e, minlength=E)                  # (E,)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * k, device=dev) - starts[se]
+    keep = rank < C
+    dest = torch.where(keep, se * C + rank, E * C)                # sink
+
+    inv = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
+    inv[dest] = stok                                              # slot->token
+    filled = torch.zeros(E * C + 1, dtype=torch.bool, device=dev)
+    filled[dest] = keep
+    buf = torch.where(filled[:E * C, None], xf[inv[:E * C]], 0)
+    slot_flat = torch.empty(T * k, dtype=torch.long, device=dev)
+    slot_flat[order] = dest                                       # (T*k,)
+
+    me = probs.mean(0)                                            # (E,)
+    ce = (counts / torch.clamp(counts.sum(), min=1)).float()
+    aux = m.aux_loss * E * torch.sum(me * ce) \
+        + m.router_z_loss * torch.mean(torch.logsumexp(logits, -1) ** 2)
+    return buf.reshape(E, C, d), (slot_flat, top_p), aux
+
+
+def _moe_combine(out_buf, meta, T: int, k: int):
+    """Per-token gather of its k expert rows; a dropped pair (slot
+    ``E*C``) reads the one zero row padded after the buffer (the
+    reference's ``mode="fill"``).  The weighted sum takes bf16 products
+    in f32 and rounds once to the buffer's dtype."""
+    slot_flat, top_p = meta
+    E, C, d = out_buf.shape
+    flat = torch.cat([out_buf.reshape(E * C, d), out_buf.new_zeros(1, d)])
+    rows = flat[slot_flat].reshape(T, k, d)
+    return _f32_einsum("tkd,tk->td", rows,
+                       top_p.to(rows.dtype)).to(rows.dtype)
+
+
+def _expert_ffn(p, buf, be: Policy, x_dtype):
+    """(E, C, d) @ experts: grouped small GEMMs (the paper's habitat).
+
+    Under every backend but the forced library (``be.use_kernels``) each
+    grouped product routes through ``api.batched_gemm``, so the per-group
+    (C, K, N) problem gets the same input-aware treatment as the 2-D path
+    (the reference's plain einsum when the router declines the kernel);
+    the forced library runs the einsums directly.  The weights are stored in
+    the compute dtype already, so the reference's cast is a no-op here.
+
+    The gate ``silu(g) * u`` is taken in f32 and rounded once: under
+    ``jit`` XLA fuses the reference's elementwise chain and keeps its
+    bf16 intermediates in f32 (excess precision), so one rounding is what
+    the reference's serving step computes."""
+    wg, wu, wd = (w.to(x_dtype) for w in (p.w_gate, p.w_up, p.w_down))
+    if be.use_kernels:
+        def gmm(a, w):
+            return api.batched_gemm(a, w, policy=be)
+    else:
+        def gmm(a, w):
+            return torch.einsum("eck,ekn->ecn", a, w)
+    g, u = gmm(buf, wg), gmm(buf, wu)
+    h = (F.silu(g.float()) * u.float()).to(g.dtype)
+    return gmm(h, wd)
+
+
+def moe(p, x, be: Policy, cfg: ModelConfig):
+    """x: (B, S, d) -> (y, aux): one shard's dispatch over all B*S tokens
+    (padding rows included: they route and take capacity, as in the
+    reference), the expert FFN, the combine."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    buf, meta, aux = _moe_dispatch(p.router, x.reshape(T, d), cfg,
+                                   _capacity(T, m))
+    out_buf = _expert_ffn(p, buf, be, x.dtype)
+    y = _moe_combine(out_buf, meta, T, m.top_k)
+    return y.to(x.dtype).reshape(B, S, d), aux

@@ -1,11 +1,12 @@
-"""Decoder-only LM, dense family, for paged serving (counterpart of
-``repro/models/lm.py``).
+"""Decoder-only LM, dense and MoE families, for paged serving
+(counterpart of ``repro/models/lm.py``).
 
 Parameters live in :class:`DenseLM`, an ``nn.Module`` built either from a
 ``torch.Generator`` (:func:`init_lm`) or from the JAX package's parameter
 tree (:func:`params_from_numpy`).  Matmul weights are stored in the
 compute dtype, cast once at load (see ``common.mm``); norm weights keep
-the parameter dtype, as the reference's ``rmsnorm`` widens them to f32.
+the parameter dtype, as the reference's ``rmsnorm`` widens them to f32,
+and the MoE router stays f32, as the reference's does.
 
 The layer stack is a Python loop over layers in place of ``lax.scan``;
 the KV pools are one stacked tensor per K and V, updated in place.
@@ -42,12 +43,20 @@ class MLP(nn.Module):
         self.wg, self.wu, self.wd = map(_frozen, (wg, wu, wd))
 
 
-class Block(nn.Module):
-    """[attn + mlp] with optional parametric pre-norms."""
-
-    def __init__(self, attn: Attention, mlp: MLP, ln1=None, ln2=None):
+class MoE(nn.Module):
+    def __init__(self, router, w_gate, w_up, w_down):
         super().__init__()
-        self.attn, self.mlp = attn, mlp
+        self.router, self.w_gate, self.w_up, self.w_down = map(
+            _frozen, (router, w_gate, w_up, w_down))
+
+
+class Block(nn.Module):
+    """[attn + mlp] or [attn + moe] with optional parametric pre-norms."""
+
+    def __init__(self, attn: Attention, mlp: Optional[MLP], ln1=None,
+                 ln2=None, moe: Optional[MoE] = None):
+        super().__init__()
+        self.attn, self.mlp, self.moe = attn, mlp, moe
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
 
 
@@ -65,10 +74,10 @@ class DenseLM(nn.Module):
 # --------------------------------------------------------------------------
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.shared_attn_every:
+    if cfg.family not in ("dense", "moe") or cfg.shared_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense only)")
+            "(dense and moe only)")
     if cfg.head_pad_multiple:
         raise NotImplementedError(f"{cfg.name}: head padding (a sharding "
                                   "aid) is not ported")
@@ -83,6 +92,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     cdt, pdt = cfg.compute_dtype, cfg.param_torch_dtype
 
     def ninit(shape, scale, dtype=cdt):
+        # drawn in f32 one tensor at a time, then cast: the largest
+        # temporary is one f32 weight
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32) * scale).to(dtype)
 
@@ -97,6 +108,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     for _ in range(cfg.n_layers):
         attn = Attention(ninit((d, H * hd), s), ninit((d, Hkv * hd), s),
                          ninit((d, Hkv * hd), s), ninit((H * hd, d), so))
+        if cfg.family == "moe":
+            blocks.append(Block(attn, None, norm(), norm(),
+                                MoE(*L.init_moe(cfg, ninit))))
+            continue
         mlp = MLP(ninit((d, ff), s), ninit((d, ff), s), ninit((ff, d), sd))
         blocks.append(Block(attn, mlp, norm(), norm()))
     unembed = None if cfg.tie_embeddings else \
@@ -110,8 +125,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       ) -> DenseLM:
     """The JAX package's parameters (nested dict of numpy arrays, layers
     stacked on axis 0, ``None`` for absent norms) as the port's module.
-    Matmul weights and the embedding are cast to ``dtype`` (default: the
-    compute dtype) once, here; norm weights keep their dtype."""
+    Matmul weights, expert weights and the embedding are cast to
+    ``dtype`` (default: the compute dtype) once, here, as ``_expert_ffn``
+    casts the experts at use in the reference; norm weights keep their
+    dtype and the MoE router stays f32."""
     _check_family(cfg)
     dtype = dtype or cfg.compute_dtype
 
@@ -127,12 +144,19 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     b = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
-        at, ml = b["attn"], b["mlp"]
+        at = b["attn"]
         attn = Attention(*(t(at[k][i]) for k in ("wq", "wk", "wv", "wo")))
-        mlp = MLP(*(t(ml[k][i]) for k in ("wg", "wu", "wd")))
+        mlp = moe = None
+        if cfg.family == "moe":
+            mo = b["moe"]
+            moe = MoE(t(mo["router"][i], torch.float32),
+                      *(t(mo[k][i]) for k in ("w_gate", "w_up", "w_down")))
+        else:
+            ml = b["mlp"]
+            mlp = MLP(*(t(ml[k][i]) for k in ("wg", "wu", "wd")))
         ln1 = b["ln1"][i] if b.get("ln1") is not None else None
         ln2 = b["ln2"][i] if b.get("ln2") is not None else None
-        blocks.append(Block(attn, mlp, norm(ln1), norm(ln2)))
+        blocks.append(Block(attn, mlp, norm(ln1), norm(ln2), moe))
     return DenseLM(t(tree["embed"]), blocks, norm(tree.get("final_norm")),
                    t(tree.get("unembed")))
 
@@ -155,7 +179,7 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
     """Zero serving state; block 0 of every pool is the null sink, and
     zero-init keeps it finite for the masked reads inactive slots discard.
     (``slots`` sizes the per-slot recurrent rows of the ssm/hybrid
-    families, which are not ported; dense models keep none.)"""
+    families, which are not ported; dense and MoE models keep none.)"""
     _check_family(cfg)
     shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads_padded, block_size,
              cfg.head_dim_)
@@ -177,14 +201,19 @@ def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
 def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
                 ps: PagedState, block_tables, qpos, decode_from=None):
     """Layer stack shared by paged prefill chunks and slot decode; K/V go
-    through ``block_tables`` into the pools (in place).  Returns logits."""
+    through ``block_tables`` into the pools (in place).  An MoE block
+    takes the MLP's place (its aux loss is a training term, dropped here
+    as in the reference).  Returns logits."""
     for i, blk in enumerate(params.blocks):
         h = rmsnorm(x, blk.ln1, cfg.norm_eps)
         x = x + L.attention(blk.attn, h, be, cfg,
                             paged_kv=(ps.attn_k[i], ps.attn_v[i],
                                       block_tables, qpos, decode_from))
         h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-        x = x + L.mlp(blk.mlp, h2, be)
+        if blk.moe is not None:
+            x = x + L.moe(blk.moe, h2, be, cfg)[0]
+        else:
+            x = x + L.mlp(blk.mlp, h2, be)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)
 

@@ -1,5 +1,5 @@
 """Model registry: one uniform interface over the ported families
-(counterpart of ``repro/models/registry.py``; dense only so far)."""
+(counterpart of ``repro/models/registry.py``; dense and moe so far)."""
 from __future__ import annotations
 
 import dataclasses

@@ -331,6 +331,9 @@ class RouteLog:
             for x in dims[:-2]:
                 m *= int(x)
             mnk = (m, int(dims[-1]), int(dims[-2]))
+        elif op in ("batched_gemm", "ragged_gemm"):
+            # per-group problem (C, N, K) — the unit the Router priced
+            mnk = (int(dims[1]), int(dims[3]), int(dims[2]))
         else:
             mnk = (int(dims[0]), int(dims[1]), int(dims[2]))
         cls = "-".join(str(_bucket_index(x)) for x in mnk)
