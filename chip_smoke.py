@@ -8,7 +8,8 @@ fails the run:
 
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
 2. build  — compiles every instance of the kernel table, for the IAAT
-            GEMM and the two grouped kernels (ptxas must report all);
+            GEMM and the two grouped kernels, and the flash attention
+            instances (ptxas must report all);
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
@@ -37,7 +38,24 @@ fails the run:
             arithmetic, logits compared, and the share of (token, layer)
             expert choices the two runs agree on;
 9. kernels — times at the main-path shapes (olmo's 2-D GEMMs, moonshot's
-            grouped ones), printed as the ``kernels`` JSON line.
+            grouped ones), printed as the ``kernels`` JSON line;
+10. flash check — the CUDA flash attention kernel against its plain
+            version, f32 and bf16: B in {1, 3}, (Hq, Hkv) in {(16, 16),
+            (8, 2), (4, 1)}, D in {64, 128, 256}, Sq = Sk in {1, 23, 80,
+            300}, causal on and off, window in {None, 24, 512}; every head
+            dim instance; a decode-like query (Sq 1, Sk 64, q_offset 63),
+            one with no valid key, and strided head views;
+11. wave serve — olmo-1b (the paged phases' weights) serves the paged
+            phase's 6 requests through the wave ContinuousBatcher under
+            ``auto`` and under the forced kernel: flash launches 16 per
+            prefill wave and none in decode, IAAT launches > 0; then one
+            2048-token prompt under ``auto``;
+12. wave step — one full-width wave prefill through the kernels against
+            the plain arithmetic, logits compared; and the share of tokens
+            ContinuousBatcher(slots=1) and PagedEngine agree on (bf16: a
+            share, not a gate);
+13. flash kernels — flash kernel / plain / SDPA times and the bound at
+            the wave's prefill shape and at B 1 x 16 heads x S 2048 x D 128.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
@@ -59,6 +77,12 @@ OUT_DIR = ROOT / "chiprun_out"
 #: take the same exact products and f32 (S, H) / f64 (D) sums in other
 #: orders; H outputs are bf16, where one rounding step is 2^-8 relative
 TOL = {"S": 1e-5, "D": 1e-12, "H": 8e-3}
+#: flash kernel vs plain: the reference's f32 tolerance for its shape
+#: sweep (``tests/test_kernels_other.py:41``), as allclose
+FLASH_TOL_F32 = 3e-5
+#: bf16: both sides take f32 sums of the same exact products and round
+#: once, so they differ by at most one bf16 step of the larger value
+BF16_STEP = 2.0 ** -7
 #: full-width decode step, kernel vs plain arithmetic: every projection
 #: rounds to bf16 and a one-step rounding flip in one of 16 (48) layers
 #: propagates; held to 5% of the largest logit
@@ -81,7 +105,7 @@ def phase_card():
 
 def phase_build():
     from repro_torch.core import kernelgen
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, flash_attention
     import re
     t0 = time.perf_counter()
     n = kernelgen.install()
@@ -94,15 +118,36 @@ def phase_build():
     per = {name: len(re.findall(rf"Compiling entry function '\w*{name}",
                                 ptx))
            for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
-                        "ragged_gemm_kernel")}
-    log(f"build: {n} instances x {len(build.SOURCES)} sources in "
+                        "ragged_gemm_kernel", "flash_attention_kernel")}
+    log(f"build: {n} instances x {len(build.SOURCES)} sources + "
+        f"{len(build.SOURCES_ONCE)} once in "
         f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels "
         f"{json.dumps(per)}, max {max(regs)} registers, {spills} bytes "
         f"spill stores -> {lib}")
+    # the flash instances: (dtype, head dim) from the mangled name
+    flash = []
+    for entry in ptx.split("Compiling entry function")[1:]:
+        m = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", entry)
+        if m:
+            flash.append({
+                "dtype": "bf16" if "bfloat16" in m.group(1) else "f32",
+                "D": int(m.group(2)),
+                "registers": int(re.search(r"Used (\d+) registers",
+                                           entry).group(1)),
+                "spill_stores": int(re.search(
+                    r"(\d+) bytes spill stores", entry).group(1))})
+    flash.sort(key=lambda f: (f["dtype"], f["D"]))
+    log("build: flash_attention instances (registers, spill bytes): "
+        + ", ".join(f"{f['dtype']} D{f['D']} {f['registers']}/"
+                    f"{f['spill_stores']}" for f in flash))
     want = len(kernelgen.instances())
-    if len(regs) != 3 * want or any(v != want for v in per.values()):
+    want_flash = 2 * len(flash_attention.HEAD_DIMS)
+    if len(regs) != 3 * want + want_flash or len(flash) != want_flash or \
+            any(per[k] != want for k in per if k != "flash_attention_kernel"):
         raise RuntimeError("ptxas reported another kernel count than the "
-                           f"table's {want} instances per kernel")
+                           f"table's {want} instances per GEMM kernel and "
+                           f"{want_flash} flash instances")
+    return flash
 
 
 def _rel_err(got, want):
@@ -187,17 +232,19 @@ def _main_operands(torch, g, M, K, N, tied, copies=1):
 def _reset_counts():
     """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
-    from repro_torch.kernels import grouped_gemm, iaat_gemm
+    from repro_torch.kernels import flash_attention, grouped_gemm, iaat_gemm
     obs.ROUTES.reset()
     iaat_gemm.reset_launch_count()
     grouped_gemm.reset_launch_count()
+    flash_attention.reset_launch_count()
 
 
 def _counts():
-    from repro_torch.kernels import grouped_gemm, iaat_gemm
+    from repro_torch.kernels import flash_attention, grouped_gemm, iaat_gemm
     return {"iaat_gemm": iaat_gemm.launch_count(),
             "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
-            "ragged_gemm": grouped_gemm.launch_count("ragged_gemm")}
+            "ragged_gemm": grouped_gemm.launch_count("ragged_gemm"),
+            "flash_attention": flash_attention.launch_count()}
 
 
 def phase_serve(torch, arch, cfg, requests, max_new, kernels):
@@ -695,6 +742,296 @@ def phase_grouped_kernels(torch, mcfg, launches, errs):
     return entries, rows
 
 
+def _flash_err(torch, got, want, what):
+    """Kernel vs plain, every output finite: allclose at FLASH_TOL_F32 in
+    f32, within one bf16 step of the larger of the two values in bf16.
+    Returns the max abs error."""
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash {what}: non-finite output")
+    g, w = got.double(), want.double()
+    d = (g - w).abs()
+    if got.dtype == torch.float32:
+        lim = FLASH_TOL_F32 + FLASH_TOL_F32 * w.abs()
+    else:
+        lim = BF16_STEP * torch.maximum(g.abs(), w.abs()) + 1e-6
+    if not bool((d <= lim).all()):
+        raise AssertionError(f"flash {what}: max abs err {d.max().item()}, "
+                             f"past the tolerance at {int((d > lim).sum())} "
+                             "outputs")
+    return d.max().item()
+
+
+def phase_flash_check(torch):
+    """The flash kernel against its plain version on the card."""
+    from repro_torch.kernels import flash_attention as fa
+    _reset_counts()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {}
+
+    def run(name, B, Hq, Hkv, Sq, Sk, D, view=False, **kw):
+        def mk(H, S):
+            t = torch.randn((B, H, S, D), generator=g, device="cuda")
+            t = t.to(dts[name])
+            # a strided (B, H, S, D) view of a (B, S, H, D) tensor
+            return t.transpose(1, 2).contiguous().transpose(1, 2) if view \
+                else t
+        q, k, v = mk(Hq, Sq), mk(Hkv, Sk), mk(Hkv, Sk)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ab = _flash_err(torch, got, want, f"{name} B{B} H{Hq}/{Hkv} "
+                        f"S{Sq}x{Sk} D{D} {kw}")
+        key = f"{name} D{D}"
+        worst[key] = max(worst.get(key, 0.0), ab)
+        return got
+
+    cases = 0
+    for name, B, (Hq, Hkv), D, S, causal, window in itertools.product(
+            dts, (1, 3), ((16, 16), (8, 2), (4, 1)), (64, 128, 256),
+            (1, 23, 80, 300), (True, False), (None, 24, 512)):
+        run(name, B, Hq, Hkv, S, S, D, causal=causal, window=window)
+        cases += 1
+    for name in dts:
+        for D, window in itertools.product((16, 32), (None, 24)):
+            run(name, 3, 8, 2, 80, 80, D, causal=True, window=window)
+        for Hq, Hkv in ((16, 16), (8, 2)):     # a decode-like query
+            run(name, 3, Hq, Hkv, 1, 64, 128, causal=True, q_offset=63)
+        run(name, 2, 16, 16, 80, 80, 128, view=True, window=24)
+        out = run(name, 1, 4, 1, 1, 64, 128, q_offset=200, window=24)
+        if out.any():
+            raise AssertionError("flash: a query with no valid key gave a "
+                                 "non-zero row")
+        cases += 8
+    launches = _counts()["flash_attention"]
+    log(f"check flash: {cases} cases, {launches} launches; worst max abs "
+        f"err (f32 allclose {FLASH_TOL_F32}, bf16 one step): "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    return {"cases": cases, "launches": launches, "worst_max_abs": worst}
+
+
+def _wave_model(cfg, phases):
+    """olmo's registry model with prefill and decode wrapped to record,
+    per call, the token shape and the flash launches it made."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import registry
+    base = registry.build(cfg)
+
+    def prefill(params, tokens, be, cache_len=None):
+        n0 = fa.launch_count()
+        out = base.prefill(params, tokens, be, cache_len=cache_len)
+        phases.append(("prefill", tuple(tokens.shape),
+                       fa.launch_count() - n0))
+        return out
+
+    def decode(params, tokens, cache, be):
+        n0 = fa.launch_count()
+        out = base.decode(params, tokens, cache, be)
+        phases.append(("decode", tuple(tokens.shape),
+                       fa.launch_count() - n0))
+        return out
+    return dataclasses.replace(base, prefill=prefill, decode=decode)
+
+
+def phase_wave_serve(torch, cfg, params, requests=6, max_new=16):
+    """olmo-1b through the wave ContinuousBatcher (4 slots) on the paged
+    phase's requests, under ``auto`` and the forced kernel, after an
+    uncounted warm-up; then one 2048-token prompt under ``auto``.  Every
+    prefill wave must launch the flash kernel once per layer and no
+    decode step may launch it."""
+    import numpy as np
+    from repro_torch import api, obs
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serve import ContinuousBatcher, Request
+    phases = []
+    model = _wave_model(cfg, phases)
+
+    def run(backend, reqs, max_len=256):
+        eng = ContinuousBatcher(model, params, api.named_policy(backend),
+                                slots=4, max_len=max_len, seed=0)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        done = eng.run()
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0
+
+    def counted(backend, reqs, max_len=256):
+        phases.clear()
+        _reset_counts()
+        done, dt = run(backend, reqs, max_len)
+        launches = _counts()
+        to_kernel, routed = obs.ROUTES.kernel_share()
+        if sorted(done) != [r.rid for r in reqs]:
+            raise AssertionError(f"wave served {sorted(done)}")
+        for r in reqs:
+            toks = done[r.rid]
+            if not 1 <= len(toks) <= r.max_new or not all(
+                    0 <= t < cfg.vocab_padded for t in toks):
+                raise AssertionError(f"wave request {r.rid}: bad tokens "
+                                     f"{toks}")
+        pre = [(shape, n) for kind, shape, n in phases if kind == "prefill"]
+        dec = [n for kind, _shape, n in phases if kind == "decode"]
+        if any(n != cfg.n_layers for _s, n in pre) or any(dec):
+            raise AssertionError(f"wave {backend}: flash launches per "
+                                 f"prefill {[n for _s, n in pre]}, per "
+                                 f"decode step {sorted(set(dec))}")
+        for k in ("flash_attention", "iaat_gemm"):
+            if launches[k] <= 0:
+                raise AssertionError(f"wave {backend}: {k} never ran")
+        tokens = sum(len(v) for v in done.values())
+        out = {"tokens": tokens, "seconds": dt, "tok_s": tokens / dt,
+               "launch_counts": launches,
+               "launches_per_token": {k: launches[k] / tokens for k in
+                                      ("iaat_gemm", "flash_attention")},
+               "prefill_shapes": [list(sh) for sh, _n in pre],
+               "flash_per_prefill": [n for _s, n in pre],
+               "decode_steps": len(dec), "flash_in_decode": sum(dec),
+               "routed": routed, "to_kernel": to_kernel}
+        log(f"wave serve {cfg.name} [{backend}]: {tokens} tokens in "
+            f"{dt:.3f}s = {tokens / dt:.2f} tok/s, {len(pre)} prefill waves "
+            f"{out['prefill_shapes']}, {len(dec)} decode steps; flash "
+            f"launches {launches['flash_attention']} "
+            f"({out['flash_per_prefill']} per prefill, {sum(dec)} in "
+            f"decode), IAAT {launches['iaat_gemm']}; routed GEMMs to the "
+            f"kernel {to_kernel}/{routed} = {to_kernel / routed:.4f}")
+        return out, done
+
+    run("auto", serve_mod.random_requests(cfg, 1, 2, seed=1))   # warm-up
+    runs = {}
+    for backend in ("auto", "kernel"):
+        runs[backend], _done = counted(
+            backend, serve_mod.random_requests(cfg, requests, max_new,
+                                               seed=0))
+    prompt = np.random.RandomState(2).randint(0, cfg.vocab, 2048)
+    runs["long"], done = counted("auto", [Request(0, prompt, max_new=4)],
+                                 max_len=2048 + 4)
+    if len(done[0]) != 4:
+        raise AssertionError(f"long prompt: {len(done[0])} tokens, want 4")
+    return runs
+
+
+def phase_wave_step(torch, cfg, params):
+    """One full-width wave prefill (4 left-padded prompts) through the
+    kernels and through the plain arithmetic (the library route: the
+    chunked oracle and exact f32-accumulated GEMMs), last-token logits
+    compared; then the token agreement of ContinuousBatcher(slots=1) and
+    PagedEngine on two requests, a share reported, not gated: their
+    bf16 rounding orders differ."""
+    from repro_torch import api
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import lm, registry
+    from repro_torch.serve import ContinuousBatcher, PagedEngine
+    kern, plain = api.Policy(backend="kernel"), api.Policy(backend="library")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    lens = [5, 12, 23, 9]
+    S = max(lens)
+    toks = torch.zeros((len(lens), S), dtype=torch.long, device="cuda")
+    for i, n in enumerate(lens):
+        toks[i, S - n:] = torch.randint(0, cfg.vocab, (n,), generator=g,
+                                        device="cuda")
+    with torch.no_grad():
+        lk, ck = lm.prefill(params, cfg, kern, toks, cache_len=S + 16)
+        lp, cp = lm.prefill(params, cfg, plain, toks, cache_len=S + 16)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("wave prefill: non-finite logits")
+    if tuple(lk.shape) != (len(lens), cfg.vocab_padded):
+        raise AssertionError(f"wave prefill logits {tuple(lk.shape)}")
+    ab, rel = _rel_err(lk, lp)
+    _, krel = _rel_err(ck.attn_k, cp.attn_k)
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    log(f"wave step {cfg.name}: full-width prefill of {tuple(toks.shape)} "
+        f"kernel vs plain: max abs err {ab:.4g}, rel {rel:.3g} (tol "
+        f"{STEP_TOL}), argmax agreement {agree:.2f}; K cache rel err "
+        f"{krel:.3g}")
+    if not rel <= STEP_TOL:
+        raise AssertionError(f"wave prefill rel err {rel} > {STEP_TOL}")
+    model = registry.build(cfg)
+    auto = api.named_policy("auto")
+    outs = []
+    for eng in (ContinuousBatcher(model, params, auto, slots=1, eos=-1),
+                PagedEngine(model, params, auto, slots=4, eos=-1)):
+        for r in serve_mod.random_requests(cfg, 2, 16, seed=0):
+            eng.submit(r)
+        outs.append(eng.run())
+    same = sum(a == b for rid in outs[0]
+               for a, b in zip(outs[0][rid], outs[1][rid]))
+    total = sum(len(v) for v in outs[0].values())
+    log(f"wave step {cfg.name}: ContinuousBatcher(slots=1) vs PagedEngine, "
+        f"2 requests x 16 tokens (bf16, auto): {same}/{total} tokens agree "
+        "position by position")
+    return {"max_abs_err": ab, "rel_err": rel, "argmax_agree": agree,
+            "k_cache_rel_err": krel, "tokens_agree": same,
+            "tokens": total}
+
+
+def phase_flash_kernels(torch, cfg, serve_shape, launches):
+    """Flash kernel / plain / library times and the bound at the wave's
+    first prefill shape (B x S) and at B 1 x S 2048, olmo's 16 heads x
+    128, bf16, causal.  The library call is
+    ``scaled_dot_product_attention(..., is_causal=True)``, timed here
+    only; its output is first compared with the plain version (logged).
+    The bound counts the causal pairs these inputs need: 4 D flops a
+    pair, each of q, k, v read once and o written once."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(9)
+    H, D = cfg.n_heads, cfg.head_dim_
+    rows = []
+    for B, S in (serve_shape, (1, 2048)):
+        q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        want = fa.flash_attention_plain(q, k, v)
+        ab = _flash_err(torch, fa.flash_attention(q, k, v), want,
+                        f"timing shape B{B} S{S}")
+        _, lib_rel = _rel_err(F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), want)
+        reps = 50 if S < 1024 else 20
+        t_k = _time_ms(torch, lambda i: fa.flash_attention(q, k, v), reps)
+        t_p = _time_ms(torch, lambda i: fa.flash_attention_plain(q, k, v),
+                       reps)
+        t_l = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps)
+        flops = 4 * D * (S * (S + 1) // 2) * B * H
+        nbytes = 2 * 4 * B * H * S * D
+        t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
+        row = {"B": B, "H": H, "S": S, "D": D, "ms": t_k, "plain_ms": t_p,
+               "library_ms": t_l, "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "flops": flops, "bytes": nbytes, "max_abs_err": ab,
+               "library_rel_err": lib_rel}
+        rows.append(row)
+        log(f"kernel time flash_attention bf16 B={B} H={H} S={S} D={D} "
+            f"causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
+            f"(SDPA) {t_l:.4f} ms (rel err vs plain {lib_rel:.3g}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.3f} "
+            f"GFLOP, {nbytes / 1e6:.2f} MB); kernel vs plain max abs err "
+            f"{ab:.4g}")
+    main, long = rows
+    entry = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:30",
+        "launches": launches,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "at": f"one {cfg.name} wave prefill's attention, B {main['B']} x "
+              f"{H} heads x S {main['S']} x D {D}, bf16, causal",
+        "at_2048": {k: long[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")},
+    }
+    return entry, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -728,11 +1065,17 @@ def main():
 
     try:
         report["card"] = timed("card", phase_card)
-        timed("build", phase_build)
+        report["flash_build"] = timed("build", phase_build)
         max_err = timed("check", phase_check, torch)
+        report["flash_check"] = timed("flash check", phase_flash_check,
+                                      torch)
         report["serve"], params = timed("serve", phase_serve, torch,
                                         "olmo-1b", cfg, 6, 16, ["iaat_gemm"])
         report["step"] = timed("step", phase_step, torch, cfg, params)
+        report["wave_serve"] = timed("wave serve", phase_wave_serve, torch,
+                                     cfg, params)
+        report["wave_step"] = timed("wave step", phase_wave_step, torch,
+                                    cfg, params)
         del params
         torch.cuda.empty_cache()
         grouped_err, ragged_launches = timed("grouped check",
@@ -751,12 +1094,17 @@ def main():
         grouped, grouped_rows = timed("grouped kernels",
                                       phase_grouped_kernels, torch, mcfg,
                                       launches, grouped_err)
+        wave = report["wave_serve"]["auto"]
+        flash, flash_rows = timed(
+            "flash kernels", phase_flash_kernels, torch, cfg,
+            tuple(wave["prefill_shapes"][0]),
+            wave["launch_counts"]["flash_attention"])
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    report["kernels"] = [entry] + grouped
-    report["shapes"] = rows + grouped_rows
+    report["kernels"] = [entry] + grouped + [flash]
+    report["shapes"] = rows + grouped_rows + flash_rows
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

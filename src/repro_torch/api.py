@@ -94,9 +94,10 @@ class Policy:
 
     @property
     def use_kernels(self) -> bool:
-        """True when the grouped paths (the MoE expert FFN) call the
-        grouped executors, i.e. under every backend but the forced
-        library; the reference's ``Policy.pallas``."""
+        """True under every backend but the forced library: the grouped
+        paths (the MoE expert FFN) then call the grouped executors, and
+        attention over a whole prompt runs the flash kernel; the
+        reference's ``Policy.pallas``."""
         return self.backend != "library"
 
     def replace(self, **kw) -> "Policy":

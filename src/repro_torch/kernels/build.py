@@ -2,10 +2,12 @@
 
 At first use :func:`load` compiles each source of :data:`SOURCES`
 (``csrc/iaat_gemm.cu``, ``csrc/grouped_gemm.cu``, both on the shared
-``csrc/tile.cuh``) once per letter (S, D, H — one ``nvcc`` each, all six
-started together), each object holding the template instances the
-install-time table (``core.kernelgen``) lists for that letter, and links
-them into one shared library with a plain C interface.  The library lands
+``csrc/tile.cuh``) once per letter (S, D, H), each object holding the
+template instances the install-time table (``core.kernelgen``) lists for
+that letter, and each source of :data:`SOURCES_ONCE`
+(``csrc/flash_attention.cu``, its f32 and bf16 instances in one object)
+once; all seven ``nvcc`` jobs start together.  The objects are linked
+into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
 hashes the sources, the generated instance lists and the flags, so an
 edit to any of them rebuilds and nothing stale is ever loaded.  Without
@@ -32,6 +34,8 @@ _LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.KERNEL_LETTERS)}
 #: kernel sources, each built once per letter; the C entries they export
 #: are ``<stem>_<letter>``
 SOURCES = ("iaat_gemm", "grouped_gemm")
+#: kernel sources built once, their instances independent of the table
+SOURCES_ONCE = ("flash_attention",)
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -79,16 +83,18 @@ def build() -> pathlib.Path:
     work = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     for letter, text in _tables().items():
         (work / f"iaat_table_{letter}.inc").write_text(text)
+    jobs = [(src, f"{src}_{letter}.o", [f"-DIAAT_LETTER={code}"])
+            for src in SOURCES for letter, code in _LETTER_CODE.items()]
+    jobs += [(src, f"{src}.o", []) for src in SOURCES_ONCE]
     procs, objs = [], []
-    for src in SOURCES:
-        for letter, code in _LETTER_CODE.items():
-            obj = str(work / f"{src}_{letter}.o")
-            cmd = [nvcc, *NVCC_FLAGS, f"-DIAAT_LETTER={code}", f"-I{work}",
-                   "-c", str(CSRC / f"{src}.cu"), "-o", obj]
-            objs.append(obj)
-            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT,
-                                                text=True)))
+    for src, name, defs in jobs:
+        obj = str(work / name)
+        cmd = [nvcc, *NVCC_FLAGS, *defs, f"-I{work}", "-c",
+               str(CSRC / f"{src}.cu"), "-o", obj]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
     log = []
     failed = None
     for cmd, p in procs:
@@ -132,6 +138,10 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"{stem}_{letter}")
                 fn.argtypes = types
                 fn.restype = i
+        s = ctypes.POINTER(ll)      # four strides
+        lib.flash_attention.argtypes = [i, i, p, s, p, s, p, s, p, s, i, i,
+                                        i, i, i, i, i, i, ctypes.c_float, p]
+        lib.flash_attention.restype = i
         lib.iaat_error_string.argtypes = [i]
         lib.iaat_error_string.restype = ctypes.c_char_p
         _LIB = lib

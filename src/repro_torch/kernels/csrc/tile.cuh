@@ -1,6 +1,7 @@
 // Shared pieces of the port's GEMM kernels (iaat_gemm.cu, grouped_gemm.cu):
 // the accumulator types, the strided, bounds-checked, zero-filling tile
 // loader, and the K loop of one (BM x BN) output block on CUDA cores.
+// flash_attention.cu uses only the widen/narrow conversions.
 //
 // Thread layout (256 threads): each thread owns TM rows x TN = 4 columns
 // of the block, bn/4 threads across a row (core/vmem.py::thread_layout_ok
@@ -151,6 +152,7 @@ __device__ __forceinline__ void store_block(
 
 // The element type of the letter a per-letter object is built for
 // (-DIAAT_LETTER=0 S, 1 D, 2 H), and its generated instance list.
+#ifdef IAAT_LETTER
 #if IAAT_LETTER == 0
 typedef float Elem;
 #define IAAT_TABLE "iaat_table_S.inc"
@@ -166,3 +168,4 @@ typedef __nv_bfloat16 Elem;
 #else
 #error "IAAT_LETTER must be 0 (S), 1 (D) or 2 (H)"
 #endif
+#endif  // IAAT_LETTER

@@ -1,0 +1,169 @@
+"""Tiled online-softmax attention on Hopper: GQA, causal with a query
+offset, sliding window.
+
+Counterpart of ``repro/kernels/flash_attention.py``: q (B, Hq, Sq, D),
+k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype, GQA by kv head
+``h // (Hq // Hkv)`` with K and V never repeated in memory.
+
+* On a CUDA tensor :func:`flash_attention` launches the hand-written CUDA
+  kernel (``csrc/flash_attention.cu``, built by ``kernels/build.py``) or
+  raises; there is no fallback.  Each launch is checked with
+  ``cudaGetLastError`` and counted (:func:`launch_count`).  The kernel's
+  tile sizes are its own, so the reference's ``bq``/``bkv`` have no
+  counterpart here.
+* On a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
+  version: the same online softmax over KV chunks, in f32, with the same
+  masks and the same finite ``NEG_INF``/``1e-37`` handling.
+
+The kernel has no backward: a CUDA call that autograd would record raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.iaat_gemm import records_grad
+
+#: the reference kernel's finite stand-in for -inf (``flash_attention.py:23``)
+NEG_INF = -1e30
+#: head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the most blocks a CUDA grid takes along y and z
+_GRID_YZ_MAX = 65535
+#: KV chunk of the plain version (the reference kernel's default bkv)
+_PLAIN_CHUNK = 128
+
+_launches = 0
+
+
+def launch_count() -> int:
+    """CUDA kernel launches since the last :func:`reset_launch_count`."""
+    return _launches
+
+
+def reset_launch_count() -> None:
+    global _launches
+    _launches = 0
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          scale: Optional[float] = None):
+    """Plain PyTorch version: online softmax over KV chunks in f32, masks
+    ``ki < Sk``, causal ``ki <= qi``, window ``ki > qi - window`` (``qi``
+    offset by ``q_offset``), masked scores at ``NEG_INF`` and their
+    probabilities zeroed, output ``acc / max(l, 1e-37)`` cast once."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, Hkv, rep, Sq, D)
+    qi = torch.arange(Sq, device=dev)[:, None] + q_offset
+    zero = torch.zeros((), device=dev)
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, device=dev)
+    l = torch.zeros((B, Hkv, rep, Sq), device=dev)
+    acc = torch.zeros((B, Hkv, rep, Sq, D), device=dev)
+    for k0 in range(0, Sk, _PLAIN_CHUNK):
+        kb = k[:, :, k0:k0 + _PLAIN_CHUNK].float()
+        vb = v[:, :, k0:k0 + _PLAIN_CHUNK].float()
+        s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kb) * scale
+        ki = k0 + torch.arange(kb.shape[2], device=dev)[None, :]
+        ok = ki < Sk
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        s = torch.where(ok, s, torch.full((), NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), zero)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p,
+                                                   vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def _strides(t):
+    return (ctypes.c_longlong * 4)(*t.stride())
+
+
+def _launch(q, k, v, causal, window, q_offset, scale):
+    global _launches
+    from repro_torch.kernels import build
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is "
+                            f"{q.dtype}; the kernel takes one dtype")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise NotImplementedError(f"flash_attention: no CUDA kernel for "
+                                  f"{q.dtype} (f32 and bf16 only)")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(f"flash_attention: no CUDA kernel for "
+                                  f"head dim {D} (built: {HEAD_DIMS})")
+    if records_grad(q, k, v):
+        raise NotImplementedError("flash_attention: the CUDA kernel has no "
+                                  "backward yet")
+    if Hq > _GRID_YZ_MAX or B > _GRID_YZ_MAX:
+        raise ValueError(f"flash_attention: B={B}, Hq={Hq} exceed the CUDA "
+                         "grid")
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if Sk == 0:
+        return out.zero_()
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.flash_attention(
+            _DTYPE_CODE[q.dtype], D, q.data_ptr(), _strides(q),
+            k.data_ptr(), _strides(k), v.data_ptr(), _strides(v),
+            out.data_ptr(), _strides(out), B, Hq, Hkv, Sq, Sk, q_offset,
+            int(causal), 0 if window is None else window, scale, stream)
+    if rc == -1:
+        raise RuntimeError(f"flash_attention: ({q.dtype}, D={D}) is not an "
+                           "instance of the built kernel")
+    if rc:
+        msg = lib.iaat_error_string(rc).decode()
+        raise RuntimeError(f"flash_attention: launch failed: {msg}")
+    _launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); returns (B, Hq, Sq, D).
+
+    Operands may be any strided views (the CUDA kernel reads them through
+    their strides).  ``window`` must be at least 1 when given."""
+    if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape) or \
+            k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
+                         "(B, Hq, Sq, D), (B, Hkv, Sk, D) twice")
+    Hq, Hkv = q.shape[1], k.shape[1]
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"GQA needs Hq % Hkv == 0, got {Hq}/{Hkv}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, window, q_offset, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, scale=scale)

@@ -1,13 +1,16 @@
 """Plain PyTorch oracles (counterparts of ``repro/kernels/ref.py``).
 
-The GEMM, grouped-GEMM and RMSNorm oracles are ported so far; the
-attention and SSD oracles come with their kernels.  They are the tests'
-oracles, kept independent of ``core/templates.py`` on purpose:
+The GEMM, grouped-GEMM, RMSNorm and attention oracles are ported so far;
+the SSD oracles come with their kernel.  ``chunked_mha`` is also the
+model's library attention path (``models/layers.py::_full_attn``).  The
+GEMM oracles are kept independent of ``core/templates.py`` on purpose:
 ``ref_gemm`` rounds to the output dtype before it adds beta*C, as the
 reference's oracle does, where the kernel and the library path add beta*C
 in the accumulator.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -51,3 +54,93 @@ def ref_rmsnorm(x, w, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention.
+# --------------------------------------------------------------------------
+
+def _mask_bias(sq: int, sk: int, q_offset: int, causal: bool,
+               window: Optional[int], dtype, device=None):
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    zero = torch.zeros((), dtype=dtype, device=device)
+    return torch.where(ok, zero, torch.tensor(float("-inf"), dtype=dtype,
+                                              device=device))
+
+
+def ref_mha(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+            q_offset: int = 0, scale: Optional[float] = None):
+    """Quadratic reference attention. q: (B, Hq, Sq, D), k/v: (B, Hkv, Sk, D).
+
+    GQA: Hq must be a multiple of Hkv; kv heads are broadcast."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    rep = Hq // Hkv
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = logits + _mask_bias(Sq, k.shape[2], q_offset, causal, window,
+                                 torch.float32, q.device)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
+def chunked_mha(q, k, v, *, causal: bool = True,
+                window: Optional[int] = None, q_offset: int = 0,
+                scale: Optional[float] = None, kv_chunk: int = 1024):
+    """Online-softmax attention scanning KV in chunks of ``kv_chunk``, in
+    plain torch ops: the library path of ``models/layers.py::_full_attn``
+    (the reference's ``lax.scan`` becomes a Python loop; memory O(S·c)).
+    The ``-inf`` masking and the ``isfinite`` guards of fully masked rows
+    are the reference's, step for step."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    nc = -(Sk // -kv_chunk)
+    pad = nc * kv_chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    qf = q.float()
+    qi = torch.arange(Sq, device=dev)[:, None] + q_offset
+    neg = torch.tensor(float("-inf"), device=dev)
+    zero = torch.zeros((), device=dev)
+    m = torch.full((B, Hq, Sq), float("-inf"), device=dev)
+    l = torch.zeros((B, Hq, Sq), device=dev)
+    acc = torch.zeros((B, Hq, Sq, D), device=dev)
+    for ci in range(nc):
+        sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
+        kb = torch.repeat_interleave(k[:, :, sl], rep, dim=1)
+        vb = torch.repeat_interleave(v[:, :, sl], rep, dim=1)
+        # einsum in f32 on widened operands: the reference's
+        # preferred_element_type=f32 (every product exact)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale
+        ki = ci * kv_chunk + torch.arange(kv_chunk, device=dev)[None, :]
+        ok = ki < Sk
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        s = torch.where(ok[None, None], s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, zero)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(ok[None, None], p, zero)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), zero)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    return out.to(q.dtype)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from typing import List
 
 import numpy as np
 import torch
@@ -23,6 +24,18 @@ from repro_torch.models.registry import build as build_model
 from repro_torch.serve import PagedEngine, Request
 
 log = logging.getLogger("repro_torch.serve")
+
+
+def random_requests(cfg, requests: int, max_new: int,
+                    seed: int = 0) -> List[Request]:
+    """``requests`` random prompts of 4..23 tokens drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for rid in range(requests):
+        plen = int(rng.randint(4, 24))
+        prompt = rng.randint(0, cfg.vocab, plen).astype(np.int64)
+        out.append(Request(rid, prompt, max_new=max_new))
+    return out
 
 
 def serve(arch: str, *, smoke: bool = False, requests: int = 8,
@@ -42,12 +55,9 @@ def serve(arch: str, *, smoke: bool = False, requests: int = 8,
     engine = PagedEngine(model, params, be, slots=slots, max_len=256,
                          temperature=temperature, seed=seed,
                          block_size=block_size, device=device)
-    rng = np.random.RandomState(seed)
     t0 = time.perf_counter()
-    for rid in range(requests):
-        plen = int(rng.randint(4, 24))
-        prompt = rng.randint(0, cfg.vocab, plen).astype(np.int64)
-        engine.submit(Request(rid, prompt, max_new=max_new))
+    for req in random_requests(cfg, requests, max_new, seed):
+        engine.submit(req)
     done = engine.run()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,13 +1,16 @@
-"""Transformer layers for paged serving: GQA attention over a paged KV
-pool, the gated MLP and the MoE layer (counterpart of
-``repro/models/layers.py``).
+"""Transformer layers for serving: GQA attention (full, sliding-window;
+over a whole prompt, a ring KV buffer or a paged KV pool), the gated MLP
+and the MoE layer (counterpart of ``repro/models/layers.py``).
 
-Every projection goes through ``common.mm`` (the IAAT dispatch hook).
-Weights keep the reference's ``(d_in, d_out)`` layout, so every GEMM shape
-the Router sees is the reference's.  Reductions are taken in the same
-order and precision as the reference (f32 accumulation via operands
-widened to f32, in place of ``preferred_element_type``), because token
-identity in paged serving depends on them.
+Every projection goes through ``common.mm`` (the IAAT dispatch hook);
+attention over a whole prompt switches between the CUDA flash kernel and
+the chunked library oracle by the ``Policy``, as the reference switches
+between its Pallas kernel and ``ref.chunked_mha``.  Weights keep the
+reference's ``(d_in, d_out)`` layout, so every GEMM shape the Router sees
+is the reference's.  Reductions are taken in the same order and precision
+as the reference (f32 accumulation via operands widened to f32, in place
+of ``preferred_element_type``), because token identity in serving depends
+on them.  Cross attention waits for the enc-dec family.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch import api
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention, ref
 from repro_torch.models.common import mm, rope
 
 
@@ -38,6 +42,46 @@ def _f32_einsum(eq: str, a, b):
     ``preferred_element_type=jnp.float32``): operands are widened first,
     so every product is exact."""
     return torch.einsum(eq, a.float(), b.float())
+
+
+def _full_attn(q, k, v, be: Policy, *, causal, window, q_offset, scale):
+    """Attention over a whole prompt: the CUDA flash kernel under every
+    backend but the forced library (``be.use_kernels``, the reference's
+    ``pallas``), else the chunked oracle in plain torch ops."""
+    if be.use_kernels:
+        return flash_attention.flash_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            scale=scale)
+    return ref.chunked_mha(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, scale=scale,
+                           kv_chunk=min(1024, k.shape[2]))
+
+
+def decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
+                  scale: float):
+    """One-token attention over a (ring) KV buffer.
+
+    q: (B, H, 1, hd); k_buf/v_buf: (B, Hkv, W, hd); ``pos`` is the position
+    of the query token (the buffer already holds it at slot pos % W).
+    Slot s holds position  p_s = pos - ((pos - s) mod W)  — for a
+    full-length buffer this is p_s = s, so one formula covers the ring
+    (sliding-window) and the linear (full) cache.  Grouped-GQA,
+    normalised-softmax order, as the reference's."""
+    B, H, _, hd = q.shape
+    Hkv, W = k_buf.shape[1], k_buf.shape[2]
+    rep = H // Hkv
+    s_idx = torch.arange(W, device=q.device)
+    p_s = pos - torch.remainder(pos - s_idx, W)
+    ok = p_s >= 0
+    if window is not None:
+        ok &= p_s > pos - window
+    qf = q.reshape(B, Hkv, rep, hd)
+    logits = _f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
+    logits = torch.where(ok, logits,
+                         torch.tensor(float("-inf"), device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    out = _f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype), v_buf)
+    return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
 def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
@@ -98,35 +142,64 @@ def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
     return torch.where(replay[:, None, :, None], outd, flash)
 
 
-def attention(p, x, be: Policy, cfg: ModelConfig, *, paged_kv,
-              window: Optional[int] = None):
-    """Attention in paged mode: ``paged_kv = (k_pool, v_pool, block_table,
-    q_pos (B, C), decode_from (B,) or None)``.  Ropes q/k at the absolute
-    positions, writes the chunk's K/V into the pools through the block
-    table, and attends over the gathered pool.  Returns y (B, C, d)."""
+def attention(p, x, be: Policy, cfg: ModelConfig, *,
+              window: Optional[int] = None, kv_cache=None,
+              pos: Optional[int] = None, paged_kv=None):
+    """Causal self-attention layer.  Modes:
+
+      prefill: neither cache given; x holds positions 0..S-1, attended
+               through :func:`_full_attn`; returns (y, (k, v)), the roped
+               k and v (B, Hkv, S, hd) for the caller's cache.
+      decode:  ``kv_cache = (k_buf, v_buf)`` (B, Hkv, W, hd), ``pos`` the
+               token's position; writes its K/V into ring slot pos % W
+               (in place), attends through :func:`decode_attend`; returns y.
+      paged:   ``paged_kv = (k_pool, v_pool, block_table, q_pos (B, C),
+               decode_from (B,) or None)``; writes the chunk's K/V into
+               the pools through the block table (in place), attends over
+               the gathered pool; returns y.
+    The reference returns the updated buffers functionally; here they are
+    updated where they live, never copied.  The reference's non-causal
+    and cross-attention modes wait for the families that use them."""
     H, Hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.head_dim_
     scale = hd ** -0.5
-    k_pool, v_pool, bt, qpos, decode_from = paged_kv
+    B, S, _ = x.shape
     q = _split_heads(mm(x, p.wq, be), H, hd)
     k = _split_heads(mm(x, p.wk, be), Hkv, hd)
     v = _split_heads(mm(x, p.wv, be), Hkv, hd)
-    BS = k_pool.shape[2]
-    q = rope(q, qpos, cfg.rope_theta)
-    k = rope(k, qpos, cfg.rope_theta)
-    blk = torch.gather(bt, 1, torch.div(qpos, BS, rounding_mode="floor"))
-    off = torch.remainder(qpos, BS)                             # (B, C)
-    heads = torch.arange(Hkv, device=x.device)[None, None, :]
-    # The reference's functional `.at[blk, :, off, :].set` becomes an
-    # in-place index_put_ on this layer's slice of the stacked pool: the
-    # pools are updated where they live, never copied.  Indices broadcast
-    # to (B, C, Hkv); values are (B, C, Hkv, hd).
-    k_pool.index_put_((blk[..., None], heads, off[..., None]),
-                      k.transpose(1, 2).to(k_pool.dtype))
-    v_pool.index_put_((blk[..., None], heads, off[..., None]),
-                      v.transpose(1, 2).to(v_pool.dtype))
-    y = paged_attend(q, k_pool, v_pool, bt, qpos, window=window,
-                     scale=scale, decode_from=decode_from)
-    return mm(_merge_heads(y), p.wo, be)
+    if paged_kv is not None:
+        k_pool, v_pool, bt, qpos, decode_from = paged_kv
+        BS = k_pool.shape[2]
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
+        blk = torch.gather(bt, 1, torch.div(qpos, BS, rounding_mode="floor"))
+        off = torch.remainder(qpos, BS)                         # (B, C)
+        heads = torch.arange(Hkv, device=x.device)[None, None, :]
+        # The reference's `.at[blk, :, off, :].set` becomes an in-place
+        # index_put_ on this layer's slice of the stacked pool.  Indices
+        # broadcast to (B, C, Hkv); values are (B, C, Hkv, hd).
+        k_pool.index_put_((blk[..., None], heads, off[..., None]),
+                          k.transpose(1, 2).to(k_pool.dtype))
+        v_pool.index_put_((blk[..., None], heads, off[..., None]),
+                          v.transpose(1, 2).to(v_pool.dtype))
+        y = paged_attend(q, k_pool, v_pool, bt, qpos, window=window,
+                         scale=scale, decode_from=decode_from)
+        return mm(_merge_heads(y), p.wo, be)
+    if kv_cache is not None:
+        k_buf, v_buf = kv_cache
+        pos_arr = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        q = rope(q, pos_arr, cfg.rope_theta)
+        k = rope(k, pos_arr, cfg.rope_theta)
+        slot = pos % k_buf.shape[2]
+        k_buf[:, :, slot] = k[:, :, 0].to(k_buf.dtype)
+        v_buf[:, :, slot] = v[:, :, 0].to(v_buf.dtype)
+        y = decode_attend(q, k_buf, v_buf, pos, window=window, scale=scale)
+        return mm(_merge_heads(y), p.wo, be)
+    positions = torch.arange(S, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    y = _full_attn(q, k, v, be, causal=True, window=window, q_offset=0,
+                   scale=scale)
+    return mm(_merge_heads(y), p.wo, be), (k, v)
 
 
 def mlp(p, x, be: Policy):

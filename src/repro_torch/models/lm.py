@@ -1,5 +1,7 @@
-"""Decoder-only LM, dense and MoE families, for paged serving
-(counterpart of ``repro/models/lm.py``).
+"""Decoder-only LM, dense and MoE families, for serving: the wave path
+(:func:`prefill`, :func:`decode` over an :class:`LMCache`) and the paged
+path (:func:`paged_prefill`, :func:`paged_decode` over a
+:class:`PagedState`) (counterpart of ``repro/models/lm.py``).
 
 Parameters live in :class:`DenseLM`, an ``nn.Module`` built either from a
 ``torch.Generator`` (:func:`init_lm`) or from the JAX package's parameter
@@ -8,8 +10,10 @@ compute dtype, cast once at load (see ``common.mm``); norm weights keep
 the parameter dtype, as the reference's ``rmsnorm`` widens them to f32,
 and the MoE router stays f32, as the reference's does.
 
-The layer stack is a Python loop over layers in place of ``lax.scan``;
-the KV pools are one stacked tensor per K and V, updated in place.
+The layer stack is a Python loop over layers in place of ``lax.scan``,
+so the reference's per-layer ``lax.cond`` between a local and a global
+layer becomes a Python choice (:func:`_window_for_layer`).  The KV caches
+and pools are one stacked tensor per K and V, updated in place.
 """
 from __future__ import annotations
 
@@ -162,6 +166,141 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 # --------------------------------------------------------------------------
+# Block application (shared by every serving mode).
+# --------------------------------------------------------------------------
+
+def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens):
+    return params.embed[tokens].to(cfg.compute_dtype)
+
+
+def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
+    # the tied embed.T is a strided view (strides (1, d)): it reaches the
+    # GEMM kernel uncopied, which reads it along its unit-stride K dim
+    w = params.embed.T if cfg.tie_embeddings else params.unembed
+    return mm(x, w, be)
+
+
+def _window_for_layer(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s attention window: every layer under ``swa``, the
+    local layers under ``local_global`` (the reference's ``lax.cond``
+    taken here in Python), none under ``full``."""
+    a = cfg.attn
+    if a.kind == "swa":
+        return a.window
+    if a.kind == "local_global" and not a.layer_is_global(i):
+        return a.window
+    return None
+
+
+def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
+                      *, kv=None, pos=None, paged_kv=None):
+    """attention (with layer ``i``'s window, in the mode ``L.attention``
+    picks from ``kv``/``paged_kv``) + mlp/moe.  An MoE block takes the
+    MLP's place; its aux loss is a training term, dropped here as the
+    reference's serving paths drop it.  Returns (y, the prompt's (k, v)
+    in prefill mode, else None)."""
+    h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+    out = L.attention(blk.attn, h, be, cfg, window=_window_for_layer(cfg, i),
+                      kv_cache=kv, pos=pos, paged_kv=paged_kv)
+    prefill = kv is None and paged_kv is None
+    attn_out, kv_out = out if prefill else (out, None)
+    x = x + attn_out
+    h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+    if blk.moe is not None:
+        y = L.moe(blk.moe, h2, be, cfg)[0]
+    else:
+        y = L.mlp(blk.mlp, h2, be)
+    return x + y, kv_out
+
+
+# --------------------------------------------------------------------------
+# Wave serving: prefill / decode over a ring KV cache.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class LMCache:
+    """KV cache of the wave path.  ``pos`` is the next position, a host
+    integer (the reference keeps a device scalar: a host int costs no
+    device read per step).  The buffers are updated in place by
+    :func:`decode`."""
+    pos: int
+    attn_k: torch.Tensor                 # (L, B, Hkv, W, hd)
+    attn_v: torch.Tensor
+
+
+def cache_buffer_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Ring-buffer length: window-sized iff NO layer needs full context."""
+    a = cfg.attn
+    if a.kind == "swa" and not cfg.shared_attn_every:
+        return min(a.window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               dtype=torch.bfloat16, prefill_len: int = 0,
+               device="cuda") -> LMCache:
+    """Zero KV cache for ``batch`` sequences of up to ``seq_len``
+    positions, ``prefill_len`` of them already filled."""
+    _check_family(cfg)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads_padded,
+             cache_buffer_len(cfg, seq_len), cfg.head_dim_)
+    return LMCache(prefill_len,
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _ring_layout(k, W: int):
+    """Reorder the last W positions of k (B, H, S, hd) into ring-slot
+    order."""
+    S = k.shape[2]
+    if W >= S:
+        return k, S
+    slots = (S - W) + torch.remainder(
+        torch.arange(W, device=k.device) - S, W)
+    return k.index_select(2, slots), W
+
+
+def _ring_pad(k, W: int, dtype):
+    """Ring layout, zero-padded to exactly W slots, in ``dtype``."""
+    kr, have = _ring_layout(k, W)
+    if have < W:
+        kr = torch.nn.functional.pad(kr, (0, 0, 0, W - have))
+    return kr.to(dtype)
+
+
+def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
+            cache_len: Optional[int] = None):
+    """Run the prompts tokens (B, S); returns (last-token logits (B, Vp),
+    the primed cache of ``cache_len`` positions, default S)."""
+    x = _embed_tokens(params, cfg, tokens)
+    B, S, _ = x.shape
+    cache_len = cache_len or S
+    cache = init_cache(cfg, B, cache_len, cfg.compute_dtype, prefill_len=S,
+                       device=x.device)
+    W = cache.attn_k.shape[3]
+    for i, blk in enumerate(params.blocks):
+        x, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
+        cache.attn_k[i] = _ring_pad(k, W, cfg.compute_dtype)
+        cache.attn_v[i] = _ring_pad(v, W, cfg.compute_dtype)
+    x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
+    return _unembed(params, cfg, x, be)[:, 0], cache
+
+
+def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
+           cache: LMCache):
+    """One-token step, tokens (B, 1): writes each layer's K/V into the
+    cache in place; returns (logits (B, Vp), the cache at pos + 1)."""
+    x = _embed_tokens(params, cfg, tokens)
+    for i, blk in enumerate(params.blocks):
+        x, _ = _apply_attn_block(blk, x, be, cfg, i,
+                                 kv=(cache.attn_k[i], cache.attn_v[i]),
+                                 pos=cache.pos)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return _unembed(params, cfg, x, be)[:, 0], dataclasses.replace(
+        cache, pos=cache.pos + 1)
+
+
+# --------------------------------------------------------------------------
 # Paged serving.
 # --------------------------------------------------------------------------
 
@@ -187,33 +326,14 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
                       torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens):
-    return params.embed[tokens].to(cfg.compute_dtype)
-
-
-def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
-    # the tied embed.T is a strided view (strides (1, d)): it reaches the
-    # GEMM kernel uncopied, which reads it along its unit-stride K dim
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
-    return mm(x, w, be)
-
-
 def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
                 ps: PagedState, block_tables, qpos, decode_from=None):
     """Layer stack shared by paged prefill chunks and slot decode; K/V go
-    through ``block_tables`` into the pools (in place).  An MoE block
-    takes the MLP's place (its aux loss is a training term, dropped here
-    as in the reference).  Returns logits."""
+    through ``block_tables`` into the pools (in place), each layer with
+    its own window.  Returns logits."""
     for i, blk in enumerate(params.blocks):
-        h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-        x = x + L.attention(blk.attn, h, be, cfg,
-                            paged_kv=(ps.attn_k[i], ps.attn_v[i],
-                                      block_tables, qpos, decode_from))
-        h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-        if blk.moe is not None:
-            x = x + L.moe(blk.moe, h2, be, cfg)[0]
-        else:
-            x = x + L.mlp(blk.mlp, h2, be)
+        x, _ = _apply_attn_block(blk, x, be, cfg, i, paged_kv=(
+            ps.attn_k[i], ps.attn_v[i], block_tables, qpos, decode_from))
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)
 

@@ -13,6 +13,12 @@ from repro_torch.models import lm
 class Model:
     cfg: ModelConfig
     init: Callable                    # (generator, device) -> params
+    prefill: Callable
+    # ^ (params, tokens, be, cache_len=None) -> (logits, lm.LMCache)
+    decode: Callable
+    # ^ (params, tokens, cache, be) -> (logits, lm.LMCache)
+    init_cache: Callable
+    # ^ (batch, seq_len, dtype, prefill_len, device) -> lm.LMCache
     paged_prefill: Callable
     # ^ (params, tokens, ps, tables, pos0, n_prompt, be) -> logits
     paged_decode: Callable
@@ -27,6 +33,17 @@ def build(cfg: ModelConfig) -> Model:
     def init(generator, device="cuda"):
         return lm.init_lm(cfg, generator, device)
 
+    def pf(params, tokens, be, cache_len=None):
+        return lm.prefill(params, cfg, be, tokens, cache_len=cache_len)
+
+    def dec(params, tokens, cache, be):
+        return lm.decode(params, cfg, be, tokens, cache)
+
+    def mk_cache(batch, seq_len, dtype, prefill_len=None, device="cuda"):
+        return lm.init_cache(cfg, batch, seq_len, dtype,
+                             seq_len if prefill_len is None else prefill_len,
+                             device)
+
     def ppf(params, tokens, ps, tables, pos0, n_prompt, be):
         return lm.paged_prefill(params, cfg, be, tokens, ps, tables, pos0,
                                 n_prompt)
@@ -38,4 +55,4 @@ def build(cfg: ModelConfig) -> Model:
         return lm.init_paged_state(cfg, num_blocks, block_size, slots,
                                    dtype, device)
 
-    return Model(cfg, init, ppf, pdec, mk_ps)
+    return Model(cfg, init, pf, dec, mk_cache, ppf, pdec, mk_ps)

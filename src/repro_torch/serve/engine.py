@@ -1,5 +1,6 @@
-"""The slot-level paged serving engine (counterpart of
-``repro/serve/engine.py::PagedEngine``).
+"""Serving engines: the slot-level paged engine and the wave-based
+reference batcher (counterparts of ``repro/serve/engine.py``'s
+``PagedEngine`` and ``ContinuousBatcher``).
 
 Decode-time projections are (B x d) @ (d x N) GEMMs with tiny B — the
 paper's small-GEMM regime.  The engine takes ONE
@@ -13,13 +14,20 @@ request.  Block exhaustion preempts the youngest sequence (recompute
 resume).  The step functions run eagerly: PyTorch has no ``jit`` to
 stage, and the pools are updated in place instead of donated.
 
-The wave ``ContinuousBatcher`` is not ported yet.
+:class:`ContinuousBatcher` is the wave-based reference: a wave of up to
+``slots`` requests shares one left-padded prefill (``lm.prefill``, whose
+attention runs the flash kernel) and decodes over a ring KV cache; slots
+refill only between waves.  ``slots=1`` is exact unbatched generation,
+the oracle the paged engine is held against.  The reference's
+``make_serve_fns`` only wraps the two model calls in ``jax.jit`` and has
+no counterpart: the engines call the model directly.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -296,3 +304,100 @@ class PagedEngine:
         obs.TRACE.emit("FINISH", rid=seq.rid, slot=seq.slot,
                        arg=len(seq.out))
         self.scheduler.finish(seq)
+
+
+# ==========================================================================
+# The wave-based reference engine.
+# ==========================================================================
+
+class ContinuousBatcher:
+    """Wave-based continuous batching over a fixed decode batch.
+
+    Prompts in one admission wave share a prefill call (left-padded to the
+    longest, with no pad mask, as in the reference), ``cache_len`` is
+    committed for the whole wave, and slots only refill between waves.
+    ``device`` defaults to the card; tests pass ``"cpu"``."""
+
+    def __init__(self, model: Model, params, be: Optional[Policy] = None,
+                 *, slots: int = 4, max_len: int = 256, eos: int = 2,
+                 temperature: float = 0.0, seed: int = 0, device="cuda"):
+        be = be if be is not None else api.current_policy()
+        self.model, self.params, self.be = model, params, be
+        self.device = torch.device(device)
+        self.slots, self.max_len, self.eos = slots, max_len, eos
+        self.temperature = temperature
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.queue: Deque[Request] = collections.deque()
+        self.done: Dict[int, List[int]] = {}
+
+    def submit(self, req: Request) -> None:
+        req.t_submit = time.perf_counter()
+        obs.counter("serve.requests").inc()
+        self.queue.append(req)
+
+    def step(self) -> bool:
+        """Admit and run ONE wave from the queue; False when idle."""
+        if not self.queue:
+            return False
+        wave = [self.queue.popleft() for _ in range(
+            min(self.slots, len(self.queue)))]
+        self._run_wave(wave)
+        return True
+
+    def run(self) -> Dict[int, List[int]]:
+        while self.step():
+            pass
+        return self.done
+
+    def _run_wave(self, wave: List[Request]) -> None:
+        B = len(wave)
+        t_admit = time.perf_counter()
+        adm = obs.histogram("serve.admission_wait_us")
+        for r in wave:
+            adm.record((t_admit - r.t_submit) * 1e6)
+        obs.histogram("serve.wave_occupancy").record(B / self.slots)
+        S = max(len(r.prompt) for r in wave)
+        toks = np.zeros((B, S), np.int64)
+        for i, r in enumerate(wave):
+            toks[i, S - len(r.prompt):] = r.prompt     # left-pad
+        max_new = max(r.max_new for r in wave)
+        with torch.no_grad():
+            with obs.span("serve.prefill"):
+                logits, cache = self.model.prefill(
+                    self.params, torch.from_numpy(toks).to(self.device),
+                    self.be, cache_len=min(S + max_new, self.max_len))
+                cur_dev = sample(logits, self.gen, self.temperature)
+                cur = cur_dev.cpu().numpy()
+            outs = [[int(cur[i])] for i in range(B)]
+            alive = np.ones(B, bool)
+            t_first = time.perf_counter()
+            ttft = obs.histogram("serve.ttft_us")
+            for r in wave:
+                ttft.record((t_first - r.t_submit) * 1e6)
+            decoded = 0
+            with obs.span("serve.decode"):
+                for _ in range(max_new - 1):
+                    if not alive.any():
+                        break
+                    logits, cache = self.model.decode(
+                        self.params, cur_dev[:, None], cache, self.be)
+                    cur_dev = sample(logits, self.gen, self.temperature)
+                    cur = cur_dev.cpu().numpy()
+                    for i in range(B):
+                        if alive[i]:
+                            tok = int(cur[i])
+                            outs[i].append(tok)
+                            decoded += 1
+                            if tok == self.eos or \
+                                    len(outs[i]) >= wave[i].max_new:
+                                alive[i] = False
+        t_done = time.perf_counter()
+        if decoded and t_done > t_first:
+            obs.histogram("serve.decode_tok_s").record(
+                decoded / (t_done - t_first))
+        e2e = obs.histogram("serve.e2e_us")
+        toks_out = obs.counter("serve.tokens")
+        for r, o in zip(wave, outs):
+            self.done[r.rid] = o
+            e2e.record((t_done - r.t_submit) * 1e6)
+            toks_out.inc(len(o))

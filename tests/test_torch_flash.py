@@ -1,0 +1,156 @@
+"""The port's flash attention and attention oracles against the JAX package's.
+
+The same numpy inputs go through the JAX Pallas kernel in interpret mode
+(``repro.kernels.flash_attention``, as the reference's own tests run it
+on the CPU) and through the port's wrapper, which on a CPU tensor runs
+its plain version.  Tolerances are the reference's
+(``tests/test_kernels_other.py:25,41,53``): 2e-5 for its fixed cases,
+3e-5 for its shape sweep, all in f32.  In bf16 both sides take f32 sums
+of the same exact products and round once, so they differ by at most one
+bf16 step (2^-7 relative).  The CUDA kernel itself is held against the
+plain version on the card by ``chip_smoke.py``.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels import flash_attention as jflash, ref as jref
+from repro_torch import api
+from repro_torch.kernels import flash_attention as fa, ref
+from repro_torch.models import layers as L
+
+BF16_STEP = 2.0 ** -7
+
+
+def _inputs(seed, B, Hq, Hkv, Sq, Sk, D):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, Hq, Sq, D).astype(np.float32),
+            rng.randn(B, Hkv, Sk, D).astype(np.float32),
+            rng.randn(B, Hkv, Sk, D).astype(np.float32))
+
+
+def _jax_flash(q, k, v, bq, bkv, dtype=jnp.float32, **kw):
+    return np.asarray(jflash.flash_attention(
+        jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+        bq=bq, bkv=bkv, interpret=True, **kw).astype(jnp.float32))
+
+
+def _port(fn, q, k, v, dtype=torch.float32, **kw):
+    out = fn(*(torch.from_numpy(a).to(dtype) for a in (q, k, v)), **kw)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+#: (seed, B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset, bq, bkv, tol):
+#: the reference's causal x window cases, its GQA shape sweep (fixed
+#: draws of its hypothesis ranges: (4,1)/(4,2)/(6,3), odd S, D 16/32/64),
+#: its decode step, and a query past every key of its window (no valid
+#: key: the row must come out 0, not NaN)
+CASES = [
+    (0, 2, 4, 2, 80, 80, 32, True, None, 0, 32, 32, 2e-5),
+    (0, 2, 4, 2, 80, 80, 32, True, 24, 0, 32, 32, 2e-5),
+    (0, 2, 4, 2, 80, 80, 32, False, None, 0, 32, 32, 2e-5),
+    (0, 2, 4, 2, 80, 80, 32, False, 24, 0, 32, 32, 2e-5),
+    (3, 1, 4, 1, 17, 17, 16, True, None, 0, 32, 32, 3e-5),
+    (4, 2, 4, 2, 33, 33, 32, True, None, 0, 32, 32, 3e-5),
+    (5, 3, 6, 3, 97, 97, 64, True, None, 0, 32, 32, 3e-5),
+    (6, 2, 6, 3, 51, 51, 16, True, None, 0, 32, 32, 3e-5),
+    (7, 1, 4, 2, 81, 81, 64, True, None, 0, 32, 32, 3e-5),
+    (1, 2, 4, 2, 1, 64, 32, True, None, 63, 8, 32, 2e-5),
+    (8, 1, 4, 1, 1, 64, 32, True, 24, 200, 8, 32, 2e-5),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: (
+    f"B{c[1]}H{c[2]}x{c[3]}S{c[4]}x{c[5]}D{c[6]}c{int(c[7])}w{c[8]}o{c[9]}"))
+def test_flash_matches_jax(case):
+    seed, B, Hq, Hkv, Sq, Sk, D, causal, window, q_offset, bq, bkv, tol = case
+    q, k, v = _inputs(seed, B, Hq, Hkv, Sq, Sk, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = _jax_flash(q, k, v, bq, bkv, **kw)
+    fa.reset_launch_count()
+    for fn in (fa.flash_attention_plain, fa.flash_attention):
+        got = _port(fn, q, k, v, **kw)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    assert fa.launch_count() == 0          # the CPU runs the plain version
+    no_key = window is not None and q_offset - window >= Sk - 1
+    if not no_key:
+        oracle = np.asarray(jref.ref_mha(*map(jnp.asarray, (q, k, v)), **kw))
+        np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
+    else:
+        assert not got.any()
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_bf16_matches_jax_within_one_step(window):
+    q, k, v = _inputs(9, 2, 4, 2, 80, 80, 32)
+    want = _jax_flash(q, k, v, 32, 32, jnp.bfloat16, window=window)
+    got = _port(fa.flash_attention, q, k, v, torch.bfloat16, window=window)
+    np.testing.assert_allclose(got, want, rtol=BF16_STEP, atol=1e-6)
+
+
+def test_flash_takes_strided_views():
+    """The heads of ``layers._split_heads`` are transposed views; the
+    wrapper takes them as they are, with the same result."""
+    q, k, v = _inputs(10, 2, 4, 2, 23, 23, 16)
+    qt, kt, vt = (torch.from_numpy(a).transpose(1, 2).contiguous()
+                  .transpose(1, 2) for a in (q, k, v))
+    assert not qt.is_contiguous()
+    got = fa.flash_attention(qt, kt, vt, window=8)
+    want = fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              window=8)
+    assert torch.equal(got, want)
+
+
+def test_flash_refuses_bad_shapes_and_masks():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(11, 1, 3, 2, 8, 8, 16))
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_attention(q, k, v)
+    q = q[:, :2]
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[..., :8], v)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, v, q_offset=-1)
+
+
+@pytest.mark.parametrize("causal,window,q_offset,kv_chunk", [
+    (True, None, 0, 16), (True, 7, 0, 16), (False, None, 0, 1024),
+    (False, 9, 0, 32), (True, None, 30, 16), (True, 4, 40, 8)])
+def test_chunked_mha_matches_jax(causal, window, q_offset, kv_chunk):
+    q, k, v = _inputs(12, 2, 4, 2, 19, 50, 16)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = np.asarray(jref.chunked_mha(*map(jnp.asarray, (q, k, v)),
+                                       kv_chunk=kv_chunk, **kw))
+    got = _port(ref.chunked_mha, q, k, v, kv_chunk=kv_chunk, **kw)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 6),
+                                           (True, 6)])
+def test_ref_mha_matches_jax(causal, window):
+    q, k, v = _inputs(13, 1, 6, 3, 21, 21, 32)
+    kw = dict(causal=causal, window=window)
+    want = np.asarray(jref.ref_mha(*map(jnp.asarray, (q, k, v)), **kw))
+    got = _port(ref.ref_mha, q, k, v, **kw)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("backend,kernel", [("kernel", True),
+                                            ("auto", True),
+                                            ("library", False)])
+def test_full_attn_routes_by_policy(monkeypatch, backend, kernel):
+    """A whole-prompt attention calls the flash kernel's module under
+    every backend but the forced library, and ``chunked_mha`` there."""
+    calls = []
+    for mod, name in ((fa, "flash_attention"), (ref, "chunked_mha")):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _o=orig, _n=name, **k: (
+            calls.append(_n), _o(*a, **k))[1])
+    q, k, v = (torch.from_numpy(a) for a in _inputs(14, 1, 4, 2, 9, 9, 16))
+    L._full_attn(q, k, v, api.named_policy(backend), causal=True,
+                 window=None, q_offset=0, scale=0.25)
+    assert calls == ["flash_attention" if kernel else "chunked_mha"]

@@ -25,7 +25,7 @@ from repro.serve import PagedEngine as JPagedEngine, Request as JRequest
 from repro_torch import api, configs, obs
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models import lm, registry
-from repro_torch.serve import PagedEngine, Request
+from repro_torch.serve import ContinuousBatcher, PagedEngine, Request
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 KERNEL = api.Policy(backend="kernel")
@@ -192,8 +192,10 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """Every entry point defaults to CUDA; the CPU runs only when asked."""
     for fn, arg in ((serve_mod.serve, "device"),
                     (PagedEngine.__init__, "device"),
+                    (ContinuousBatcher.__init__, "device"),
                     (lm.init_lm, "device"),
                     (lm.init_paged_state, "device"),
+                    (lm.init_cache, "device"),
                     (lm.params_from_numpy, "device")):
         assert inspect.signature(fn).parameters[arg].default == "cuda", fn
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "olmo-1b",
