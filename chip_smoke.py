@@ -8,8 +8,9 @@ fails the run:
 
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
 2. build  — compiles every instance of the kernel table, for the IAAT
-            GEMM and the two grouped kernels, and the flash attention
-            instances (ptxas must report all);
+            GEMM and the two grouped kernels (S/D/H), the complex
+            Karatsuba kernel (C/Z), and the flash attention instances
+            (ptxas must report all);
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
@@ -55,7 +56,26 @@ fails the run:
             ContinuousBatcher(slots=1) and PagedEngine agree on (bf16: a
             share, not a gate);
 13. flash kernels — flash kernel / plain / SDPA times and the bound at
-            the wave's prefill shape and at B 1 x 16 heads x S 2048 x D 128.
+            the wave's prefill shape and at B 1 x 16 heads x S 2048 x D 128;
+14. grid check — the paper's grid (configs/paper_gemm.py: S/D/C/Z x
+            NN/NT/TN/TT, M = N = K = 2..80, to 32 for TN), ragged
+            non-cubes, .T and sliced views, alpha (complex for C/Z) with
+            and without C, through api.gemm under the forced kernel, each
+            output finite and within the reference's _RTOL of the plain
+            version; counted from 0, the real and the complex kernel must
+            both launch (run right after phase 3);
+15. pack baseline — core/dispatch.traditional_gemm (pad + transpose
+            copies, one fixed kernel) against the IAAT plan at the
+            paper's sizes per letter: times, ratio, packed bytes (run
+            after phase 14);
+16. tune  — repro_torch.tune's sweep on the card over S/D/C/Z x four
+            transpositions, cube classes 8..2048, and moonshot's grouped
+            decode classes; the profile written to a temporary cache,
+            loaded, and the grid run again under named_policy("tuned"):
+            every measured class routes by the profile to its winner;
+            the measured crossover per letter and transposition;
+17. complex kernels — the complex kernel / plain / torch.matmul times
+            and the bound for C and Z at 80^3, 512^3 and 2048^3.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
@@ -118,8 +138,13 @@ def phase_build():
     per = {name: len(re.findall(rf"Compiling entry function '\w*{name}",
                                 ptx))
            for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
-                        "ragged_gemm_kernel", "flash_attention_kernel")}
-    log(f"build: {n} instances x {len(build.SOURCES)} sources + "
+                        "ragged_gemm_kernel", "cx_gemm_kernel",
+                        "flash_attention_kernel")}
+    real = sum(1 for i in kernelgen.instances()
+               if i[0] in kernelgen.KERNEL_LETTERS)
+    cx = n - real
+    log(f"build: {real} real instances x {len(build.SOURCES)} sources + "
+        f"{cx} complex x {len(build.SOURCES_CX)} + "
         f"{len(build.SOURCES_ONCE)} once in "
         f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels "
         f"{json.dumps(per)}, max {max(regs)} registers, {spills} bytes "
@@ -140,19 +165,33 @@ def phase_build():
     log("build: flash_attention instances (registers, spill bytes): "
         + ", ".join(f"{f['dtype']} D{f['D']} {f['registers']}/"
                     f"{f['spill_stores']}" for f in flash))
-    want = len(kernelgen.instances())
     want_flash = 2 * len(flash_attention.HEAD_DIMS)
-    if len(regs) != 3 * want + want_flash or len(flash) != want_flash or \
-            any(per[k] != want for k in per if k != "flash_attention_kernel"):
+    want = {"iaat_gemm_kernel": real, "batched_gemm_kernel": real,
+            "ragged_gemm_kernel": real, "cx_gemm_kernel": cx,
+            "flash_attention_kernel": want_flash}
+    if len(regs) != 3 * real + cx + want_flash or \
+            len(flash) != want_flash or per != want:
         raise RuntimeError("ptxas reported another kernel count than the "
-                           f"table's {want} instances per GEMM kernel and "
-                           f"{want_flash} flash instances")
+                           f"table's {want}: {per}")
+    # the complex instances: registers and spills, from the ptxas report
+    cxr = [(int(re.search(r"Used (\d+) registers", e).group(1)),
+            int(re.search(r"(\d+) bytes spill stores", e).group(1)))
+           for e in ptx.split("Compiling entry function")[1:]
+           if "cx_gemm_kernel" in e.split("'")[1]]
+    log(f"build: cx_gemm instances use {min(r for r, _ in cxr)}.."
+        f"{max(r for r, _ in cxr)} registers, "
+        f"{sum(sp for _, sp in cxr)} bytes of spill stores in all")
     return flash
 
 
 def _rel_err(got, want):
-    d = (got.double() - want.double()).abs().max().item()
-    return d, d / max(want.double().abs().max().item(), 1e-30)
+    """max|got - want| and that over max|want|, in f64 (complex128 for a
+    complex operand, so that the imaginary parts count)."""
+    import torch
+    wide = torch.complex128 if got.is_complex() or want.is_complex() else \
+        torch.float64
+    d = (got.to(wide) - want.to(wide)).abs().max().item()
+    return d, d / max(want.to(wide).abs().max().item(), 1e-30)
 
 
 def phase_check(torch):
@@ -241,7 +280,8 @@ def _reset_counts():
 
 def _counts():
     from repro_torch.kernels import flash_attention, grouped_gemm, iaat_gemm
-    return {"iaat_gemm": iaat_gemm.launch_count(),
+    return {"iaat_gemm": iaat_gemm.launch_count("iaat_gemm"),
+            "cx_gemm": iaat_gemm.launch_count("cx_gemm"),
             "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
             "ragged_gemm": grouped_gemm.launch_count("ragged_gemm"),
             "flash_attention": flash_attention.launch_count()}
@@ -1032,6 +1072,392 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
     return entry, rows
 
 
+# --------------------------------------------------------------------------
+# The paper's S/D/C/Z grid: the complex kernel, the pack baseline, the
+# install-time tuner.
+# --------------------------------------------------------------------------
+
+#: kernel vs plain on the paper's grid: the reference's own ``_RTOL``
+#: (``tests/test_kernels_gemm.py:15``), held as max|kernel - plain| /
+#: max|plain|; both sides take the same products (C/Z: the same Karatsuba
+#: planes) and sum them in other orders
+GRID_TOL = {"S": 2e-5, "D": 1e-12, "C": 2e-4, "Z": 1e-12}
+GRID_DT = {}          # letter -> torch dtype, filled in by main()
+#: ragged non-cubes (M, N, K) every letter and transposition also runs
+GRID_RAGGED = ((7, 130, 33), (65, 3, 129), (1, 1, 1), (33, 300, 130))
+
+
+def _grid_operand(torch, g, shape, letter):
+    x = torch.randn(shape, generator=g, device="cuda", dtype=torch.float64)
+    if letter in ("C", "Z"):
+        x = torch.complex(x, torch.randn(shape, generator=g, device="cuda",
+                                         dtype=torch.float64))
+    return x.to(GRID_DT[letter])
+
+
+def _grid_cases(torch, g):
+    """Every case of the grid phases: (letter, trans, M, N, K, a, b, c,
+    alpha, beta, trans_a, trans_b, what).  The paper's grid
+    (``configs/paper_gemm.py``: S/D/C/Z x NN/NT/TN/TT, M = N = K = 2..80
+    in steps of 2, to 32 for TN) alternating without C (alpha only) and
+    with C (alpha and beta, complex for C/Z); then ragged non-cubes; then
+    operands that are ``.T`` views (the transposition carried by the view,
+    not by the flag) and sliced, non-contiguous views."""
+    from repro_torch.configs import paper_gemm
+    cfg = paper_gemm.CONFIG
+    for letter in cfg.letters:
+        cx = letter in ("C", "Z")
+        scal = ((0.75 + 1.25j, 0.0), (1.5 - 0.5j, 0.25 + 2j)) if cx else \
+            ((0.75, 0.0), (1.5, -0.5))
+        for trans in cfg.transpositions:
+            dims = [(n, n, n) for n in cfg.sizes(trans)] + list(GRID_RAGGED)
+            for i, (M, N, K) in enumerate(dims):
+                alpha, beta = scal[i % 2]
+                a = _grid_operand(torch, g, (M, K) if trans[0] == "N"
+                                  else (K, M), letter)
+                b = _grid_operand(torch, g, (K, N) if trans[1] == "N"
+                                  else (N, K), letter)
+                c = _grid_operand(torch, g, (M, N), letter) if beta else None
+                yield (letter, trans, M, N, K, a, b, c, alpha, beta,
+                       trans[0] == "T", trans[1] == "T", f"{M}x{N}x{K}")
+        # a .T view with the NN flags (op(A) is stored (K, M)) and sliced
+        # views with rows and columns of stride 2
+        M, N, K = 45, 70, 37
+        at = _grid_operand(torch, g, (K, M), letter).T
+        bt = _grid_operand(torch, g, (N, K), letter).T
+        yield (letter, "NN", M, N, K, at, bt, None, scal[0][0], 0.0, False,
+               False, ".T views")
+        a = _grid_operand(torch, g, (2 * M, 2 * K), letter)[::2, 1::2]
+        b = _grid_operand(torch, g, (2 * N, K + 3), letter)[::2, 3:]
+        c = _grid_operand(torch, g, (M, 2 * N), letter)[:, ::2]
+        yield (letter, "NT", M, N, K, a, b, c, *scal[1], False, True,
+               "sliced views")
+
+
+def _run_grid(torch, policy, check_route=None):
+    """``api.gemm`` under ``policy`` over every grid case, each output
+    finite and within GRID_TOL of the plain version.  ``check_route(d,
+    letter, trans, M, N, K)`` sees each case's Decision first.  Returns
+    (cases, worst rel err per letter and trans, max abs err per letter)."""
+    from repro_torch import api
+    from repro_torch.core import kernelgen
+    from repro_torch.kernels import iaat_gemm
+    g = torch.Generator(device="cuda").manual_seed(15)
+    worst, max_abs, cases = {}, {}, 0
+    for (letter, trans, M, N, K, a, b, c, alpha, beta, ta, tb,
+         what) in _grid_cases(torch, g):
+        tr = ("T" if ta else "N") + ("T" if tb else "N")
+        if check_route is not None:
+            check_route(api.route("gemm", (M, N, K), letter, tr,
+                                  policy=policy), letter, tr, M, N, K)
+        out = api.gemm(a, b, c, alpha, beta, ta, tb, policy=policy)
+        want = iaat_gemm.gemm_region_plain(
+            kernelgen.kernel_table(letter, tr)[0], a, b, c, alpha, beta)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (M, N) or out.dtype != GRID_DT[letter] or \
+                not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"grid {letter} {tr} {what}: shape "
+                                 f"{tuple(out.shape)}, {out.dtype}, or a "
+                                 "non-finite output")
+        ab, rel = _rel_err(out, want)
+        key = f"{letter}{trans}"
+        worst[key] = max(worst.get(key, 0.0), rel)
+        max_abs[letter] = max(max_abs.get(letter, 0.0), ab)
+        if not rel <= GRID_TOL[letter]:
+            raise AssertionError(f"grid {letter} {tr} {what} c={c is not None}"
+                                 f": rel err {rel} > {GRID_TOL[letter]}")
+        cases += 1
+    return cases, worst, max_abs
+
+
+def phase_grid_check(torch):
+    """This slice's main path: ``api.gemm`` under the forced kernel policy
+    over the paper's whole S/D/C/Z grid, every kernel launch counted from
+    0; both the real and the complex kernel must have launched."""
+    from repro_torch import api
+    _reset_counts()
+    cases, worst, max_abs = _run_grid(torch, api.Policy(backend="kernel"))
+    launches = _counts()
+    log(f"grid check (forced kernel): {cases} GEMMs, launches "
+        f"{json.dumps({k: launches[k] for k in ('iaat_gemm', 'cx_gemm')})}"
+        "; worst rel err (tol S 2e-5, D 1e-12, C 2e-4, Z 1e-12): "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    for k in ("iaat_gemm", "cx_gemm"):
+        if launches[k] <= 0:
+            raise AssertionError(f"grid check: {k} never ran")
+    return {"cases": cases, "launches": launches, "worst_rel": worst,
+            "max_abs_err": max_abs}
+
+
+def phase_pack(torch):
+    """The paper's Fig. 3 question on this card: the pack-step baseline
+    (``core/dispatch.traditional_gemm``: transpose-normalise and pad both
+    operands into fresh buffers, one fixed kernel) against the IAAT plan
+    (``api.gemm`` under the forced kernel) at the paper's sizes, per
+    letter; CUDA-event times of each, their ratio, and the bytes the pack
+    step moves (``traditional_pack_bytes``).  Both outputs are first held
+    against the plain version."""
+    from repro_torch import api
+    from repro_torch.core import dispatch, kernelgen
+    from repro_torch.kernels import iaat_gemm
+    kern = api.Policy(backend="kernel")
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for letter in ("S", "D", "C", "Z"):
+        for trans, sizes in (("NN", (8, 16, 32, 48, 64, 80)),
+                             ("TN", (8, 16, 32))):
+            ta = trans[0] == "T"
+            for n in sizes:
+                a = _grid_operand(torch, g, (n, n), letter)
+                b = _grid_operand(torch, g, (n, n), letter)
+                want = iaat_gemm.gemm_region_plain(
+                    kernelgen.kernel_table(letter, trans)[0], a, b)
+                for name, fn in (
+                        ("pack", lambda: dispatch.traditional_gemm(
+                            a, b, trans_a=ta)),
+                        ("iaat", lambda: api.gemm(a, b, trans_a=ta,
+                                                  policy=kern))):
+                    _, rel = _rel_err(fn(), want)
+                    if not rel <= GRID_TOL[letter]:
+                        raise AssertionError(f"pack phase {name} {letter} "
+                                             f"{trans} {n}: rel err {rel}")
+                t_pack = _time_ms(torch, lambda i: dispatch.traditional_gemm(
+                    a, b, trans_a=ta), 50)
+                t_iaat = _time_ms(torch, lambda i: api.gemm(
+                    a, b, trans_a=ta, policy=kern), 50)
+                rows.append({"letter": letter, "trans": trans, "n": n,
+                             "pack_ms": t_pack, "iaat_ms": t_iaat,
+                             "ratio": t_pack / t_iaat,
+                             "pack_bytes": dispatch.traditional_pack_bytes(
+                                 n, n, n, GRID_DT[letter])})
+    for letter in ("S", "D", "C", "Z"):
+        log(f"pack baseline {letter} (fixed kernel "
+            f"{dispatch.PACK_SIG[letter]}): " + ", ".join(
+                f"{r['trans']} {r['n']}: pack {r['pack_ms']:.4f} ms / iaat "
+                f"{r['iaat_ms']:.4f} ms = {r['ratio']:.2f}x "
+                f"({r['pack_bytes']} B packed)"
+                for r in rows if r["letter"] == letter))
+    return rows
+
+
+def _crossovers(prof, letters, transes):
+    """Per letter and transposition: the cube classes measured in order,
+    the winner of each, and the measured crossover, the largest cube
+    representative at which the kernel beat the library (None: never)."""
+    from repro_torch.tune import classes
+    out = {}
+    for letter in letters:
+        for tr in transes:
+            wins = []
+            for key, e in prof.entries.items():
+                if key.startswith(f"{letter}/{tr}/"):
+                    n = classes.representative(
+                        classes.SizeClass.from_key(key))[0]
+                    wins.append((n, e.prefer_kernel, e.kernel.median_us,
+                                 e.library.median_us,
+                                 e.sig.name if e.sig else None))
+            wins.sort()
+            out[f"{letter}{tr}"] = {
+                "classes": wins,
+                "crossover": max((n for n, k, *_ in wins if k),
+                                 default=None)}
+    return out
+
+
+def phase_tune(torch, mcfg):
+    """The install-time stage on the card: ``tune.search.sweep`` over
+    S/D/C/Z x NN/NT/TN/TT on the cube classes from 8 to 2048 (the top 3
+    kernel candidates by CUDA events against the library, TF32 off), run
+    twice (the first sweep only says how stable the winners are), plus
+    the grouped classes of moonshot's decode step timed on
+    ``batched_gemm``.
+    No candidate may fail.  The profile is written to a temporary cache
+    dir, loaded from there as the active profile, and the grid runs again
+    under ``named_policy("tuned")``: every case whose class was measured
+    must route with source "profile" to the recorded winner, and agree
+    with the plain version.  Prints the measured crossover per letter and
+    transposition."""
+    import os
+    import tempfile
+    from repro_torch import api
+    from repro_torch.tune import classes, profile as profile_mod, search
+    from repro_torch.tune import timer
+    letters, transes = ("S", "D", "C", "Z"), ("NN", "NT", "TN", "TT")
+    n_failed = len(timer.FAILURES)
+    # two sweeps: the second is the profile, the first says how far a
+    # winner can be trusted (both sides are host-bound at small sizes)
+    sweeps, t_sweep = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        sweeps.append(search.sweep(letters, transes, min_dim=8,
+                                   max_dim=2048, cube_only=True, top=3,
+                                   warmup=3, reps=10, device="cuda"))
+        t_sweep.append(time.perf_counter() - t0)
+    first, prof = sweeps
+    agree = sum(e.prefer_kernel == first.entries[k].prefer_kernel
+                for k, e in prof.entries.items())
+    E, C = mcfg.moe.num_experts, _decode_capacity(mcfg)
+    grouped = {}
+    for (K, N) in _grouped_decode_shapes(mcfg):
+        sc = classes.size_class(C, N, K, "H", "NN")
+        e = search.tune_grouped_class(sc, G=E, top=2, warmup=2, reps=5,
+                                      device="cuda")
+        prof.record_grouped(sc, e)
+        grouped[(K, N)] = (sc, e)
+    failed = timer.FAILURES[n_failed:]
+    if failed:
+        raise AssertionError(f"tune: {len(failed)} candidates failed: "
+                             f"{failed[:5]}")
+    cross = _crossovers(prof, letters, transes)
+    cross_first = _crossovers(first, letters, transes)
+    for key, v in cross.items():
+        log(f"tune {key}: kernel wins at "
+            f"{[n for n, k, *_ in v['classes'] if k]}, library at "
+            f"{[n for n, k, *_ in v['classes'] if not k]}; measured "
+            f"crossover {v['crossover']} (first sweep: "
+            f"{cross_first[key]['crossover']})")
+    n_kernel = sum(e.prefer_kernel for e in prof.entries.values())
+    log(f"tune: {len(prof)} classes ({len(prof) - len(grouped)} 2-D, "
+        f"{len(grouped)} grouped), sweeps of {t_sweep[0]:.1f}s and "
+        f"{t_sweep[1]:.1f}s whose winners agree on {agree} of "
+        f"{len(first)} 2-D classes; {n_kernel} prefer the kernel; grouped "
+        f"(G {E}, C {C}): " + ", ".join(
+            f"K={K} N={N} rep {classes.representative(sc)}: kernel "
+            f"{e.kernel.median_us:.1f} us ({e.sig.name}) vs einsum "
+            f"{e.library.median_us:.1f} us"
+            for (K, N), (sc, e) in grouped.items()))
+
+    tuned = api.named_policy("tuned")
+    seen = {"profile": 0, "analytical": 0}
+
+    def check_route(d, letter, trans, M, N, K):
+        entry = prof.lookup_dims(M, N, K, letter, trans)
+        if entry is None:
+            if d.source != "analytical":
+                raise AssertionError(f"tuned {letter} {trans} {M}x{N}x{K}: "
+                                     f"unmeasured class routed by {d.source}")
+        elif (d.source, d.use_kernel, d.sig) != (
+                "profile", entry.prefer_kernel,
+                entry.sig if entry.prefer_kernel else None):
+            raise AssertionError(f"tuned {letter} {trans} {M}x{N}x{K}: {d} "
+                                 f"is not the profile's winner {entry}")
+        seen[d.source] += 1
+
+    env = os.environ.get(profile_mod.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ[profile_mod.CACHE_ENV] = cache
+        try:
+            path = prof.save()
+            profile_mod.clear_active_profile()
+            active = profile_mod.active_profile()     # loaded from path
+            if active is None or active.to_json() != prof.to_json():
+                raise AssertionError(f"tune: the profile at {path} did not "
+                                     "load as the active profile")
+            _reset_counts()
+            cases, worst, _ = _run_grid(torch, tuned, check_route)
+            launches = _counts()
+            for (K, N), (sc, e) in grouped.items():
+                d = api.route("batched_gemm", (E, C, K, N), "H",
+                              policy=tuned)
+                if (d.source, d.use_kernel, d.blocks) != (
+                        "profile", e.prefer_kernel,
+                        (e.sig.bm, e.sig.bn, e.sig.bk)):
+                    raise AssertionError(f"tuned grouped K={K} N={N}: {d}")
+        finally:
+            profile_mod.set_active_profile(None)
+            if env is None:
+                os.environ.pop(profile_mod.CACHE_ENV, None)
+            else:
+                os.environ[profile_mod.CACHE_ENV] = env
+    log(f"tune: grid under named_policy('tuned'): {cases} GEMMs, "
+        f"{seen['profile']} routed by the profile (each to its recorded "
+        f"winner), {seen['analytical']} analytical (no class measured: sizes "
+        f"2..7, the ragged non-cubes, the view cases); launches {json.dumps(launches)}; worst rel err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    return {"seconds_sweep": t_sweep, "classes": len(prof),
+            "prefer_kernel": n_kernel, "crossover": cross,
+            "crossover_first_sweep": cross_first,
+            "winners_agree": [agree, len(first)],
+            "grouped": {f"{K}x{N}": e.to_json()
+                        for (K, N), (sc, e) in grouped.items()},
+            "tuned_grid": {"cases": cases, "routes": seen,
+                           "launches": launches}}
+
+
+def phase_complex_kernels(torch, launches, max_abs_err):
+    """Complex kernel / plain / library times and the bound, C and Z, at
+    80^3 (the paper's largest), 512^3 and 2048^3, NN, operands warm in L2
+    as in the paper's repeated same-size benchmark (2048^3 Z is 201 MB, past
+    it).  The kernel time is ``api.gemm`` under the forced kernel (the
+    plan, all its launches); the library call is ``torch.matmul`` on the
+    complex tensors (TF32 off), timed here only.  The bound counts the
+    Karatsuba's 6MNK + 5MN operations at the plane type's peak
+    (``cost.gemm_roofline``).  The line's numbers are C at 80^3."""
+    from repro_torch import api
+    from repro_torch.core import cost, kernelgen, plan as plan_mod
+    from repro_torch.kernels import iaat_gemm
+    kern = api.Policy(backend="kernel")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for letter in ("C", "Z"):
+        sig = kernelgen.kernel_table(letter, "NN")[0]
+        for n in (80, 512, 2048):
+            a = _grid_operand(torch, g, (n, n), letter)
+            b = _grid_operand(torch, g, (n, n), letter)
+            want = iaat_gemm.gemm_region_plain(sig, a, b)
+            ab, rel = _rel_err(api.gemm(a, b, policy=kern), want)
+            _, lib_rel = _rel_err(torch.matmul(a, b), want)
+            if not rel <= GRID_TOL[letter]:
+                raise AssertionError(f"complex kernel {letter} {n}^3: rel "
+                                     f"err {rel}")
+            reps = 50 if n < 1024 else 10
+            t_k = _time_ms(torch, lambda i: api.gemm(a, b, policy=kern),
+                           reps)
+            t_p = _time_ms(torch, lambda i: iaat_gemm.gemm_region_plain(
+                sig, a, b), reps)
+            t_l = _time_ms(torch, lambda i: torch.matmul(a, b), reps)
+            bound = cost.gemm_roofline(n, n, n, letter)
+            p = plan_mod.build_plan(n, n, n, letter, "NN")
+            row = {"letter": letter, "n": n, "ms": t_k, "plain_ms": t_p,
+                   "library_ms": t_l, "bound_ms": bound.seconds * 1e3,
+                   "bound_by": bound.bound, "flops": bound.flops,
+                   "bytes": bound.hbm_bytes,
+                   "launches_per_call": p.num_kernel_calls,
+                   "blocks": [r.sig.name for r in p.regions],
+                   "max_abs_err": ab, "library_rel_err": lib_rel}
+            rows.append(row)
+            log(f"kernel time cx_gemm {letter} {n}^3: kernel {t_k:.4f} ms "
+                f"({p.num_kernel_calls} launches: {row['blocks']}), plain "
+                f"{t_p:.4f} ms, library (torch.matmul) {t_l:.4f} ms (rel "
+                f"err vs plain {lib_rel:.3g}), bound "
+                f"{row['bound_ms']:.5f} ms ({bound.bound}: "
+                f"{bound.flops / 1e9:.4f} GFLOP, {bound.hbm_bytes / 1e6:.3f} "
+                f"MB), {bound.flops / t_k / 1e9:.2f} TFLOP/s; kernel vs "
+                f"plain rel err {rel:.3g}")
+    main = rows[0]
+    entry = {
+        "name": "cx_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/cx_gemm.cu",
+        "replaces": "src/repro/kernels/iaat_gemm.py:152",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "at": "C (complex64) 80x80x80 NN through api.gemm under the forced "
+              "kernel, the paper's largest small GEMM; launches: the grid "
+              "check's C/Z GEMMs",
+        "more": {f"{r['letter']}{r['n']}": {
+            k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "launches_per_call")}
+            for r in rows},
+    }
+    return entry, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1050,6 +1476,8 @@ def main():
                       (cfg.d_model, cfg.d_ff, False),
                       (cfg.d_ff, cfg.d_model, False),
                       (cfg.d_model, cfg.vocab_padded, True)]
+    GRID_DT.update({"S": torch.float32, "D": torch.float64,
+                    "C": torch.complex64, "Z": torch.complex128})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1067,6 +1495,8 @@ def main():
         report["card"] = timed("card", phase_card)
         report["flash_build"] = timed("build", phase_build)
         max_err = timed("check", phase_check, torch)
+        report["grid_check"] = timed("grid check", phase_grid_check, torch)
+        report["pack"] = timed("pack baseline", phase_pack, torch)
         report["flash_check"] = timed("flash check", phase_flash_check,
                                       torch)
         report["serve"], params = timed("serve", phase_serve, torch,
@@ -1099,12 +1529,18 @@ def main():
             "flash kernels", phase_flash_kernels, torch, cfg,
             tuple(wave["prefill_shapes"][0]),
             wave["launch_counts"]["flash_attention"])
+        report["tune"] = timed("tune", phase_tune, torch, mcfg)
+        grid = report["grid_check"]
+        cx, cx_rows = timed(
+            "complex kernels", phase_complex_kernels, torch,
+            grid["launches"]["cx_gemm"],
+            max(grid["max_abs_err"]["C"], grid["max_abs_err"]["Z"]))
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    report["kernels"] = [entry] + grouped + [flash]
-    report["shapes"] = rows + grouped_rows + flash_rows
+    report["kernels"] = [entry] + grouped + [flash, cx]
+    report["shapes"] = rows + grouped_rows + flash_rows + cx_rows
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

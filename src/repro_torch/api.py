@@ -12,12 +12,16 @@ input-aware decision layer picks the kernel for every small GEMM:
   instance in ``Decision.blocks`` (``grouped_gemm.pick_blocks``).
 
 Decision precedence:  forced (backend="kernel"/"library")  >  profile
-(backend="tuned", not ported: raises)  >  analytical (smallness).
+(backend="tuned": the measured ``repro_torch.tune`` DeviceProfile)  >
+analytical (smallness).  A ``tuned`` policy with no active profile, or
+with no measured entry for the class, decides exactly as ``auto``.
 
 Executors (:func:`gemm`, :func:`matmul`, :func:`batched_gemm`,
 :func:`ragged_gemm`) act on the Decision: the kernel path runs the plan
-through the hand-written CUDA kernel (``kernels/iaat_gemm.py``) or the
-grouped kernels (``kernels/grouped_gemm.py``); the 2-D library path runs
+through the hand-written CUDA kernels (``kernels/iaat_gemm.py``: the real
+kernel for S/D/H, the complex Karatsuba kernel for C/Z; a profile's
+winner pins a one-region plan through ``Decision.sig``) or the grouped
+kernels (``kernels/grouped_gemm.py``); the 2-D library path runs
 ``torch.matmul`` in the accumulator dtype (the ``_xla_gemm`` epilogue
 rule), the grouped one the reference's plain einsum in the operand dtype,
 with TF32 off from :func:`install` on.
@@ -42,8 +46,10 @@ from repro_torch.kernels import grouped_gemm as _gg
 #: intensity n/4 meets the ridge (989 TFLOP/s / 3.35 TB/s = 295) at
 #: n = 4 * 295 = 1181.  Below it a no-pack kernel and the library move the
 #: same bytes and the library's tensor-core advantage idles, so the small
-#: regime extends to about there.  An UNMEASURED PRIOR (DESIGN_PORT.md §4)
-#: until the port's tuner measures the crossover on the card.
+#: regime extends to about there.  An UNMEASURED PRIOR, kept as the
+#: ``auto`` criterion (the reference's semantics); the crossover the
+#: port's tuner measures on the card stands beside it (DESIGN_PORT.md §4),
+#: and ``backend="tuned"`` routes by that measurement.
 HOPPER_CROSSOVER = 4.0 * cost.RIDGE_BF16
 #: The paper's 80/32 thresholds scaled to that crossover (~14.8).
 HOPPER_SCALE = HOPPER_CROSSOVER / paper_table.PAPER_SMALL_THRESHOLD
@@ -70,7 +76,8 @@ class Policy:
 
     ``backend``: ``kernel`` forces the IAAT kernel, ``library`` forces
     ``torch.matmul``, ``auto`` applies the analytical criterion, ``tuned``
-    (route by a measured profile) raises until ``tune/`` is ported.
+    routes by the active measured profile (``repro_torch.tune``) and
+    falls back to the analytical criterion where it has no entry.
     ``iaat=False`` sends model matmuls straight to ``torch.matmul``; the
     MoE expert FFN's grouped GEMMs still follow ``backend``.
     """
@@ -82,10 +89,6 @@ class Policy:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"one of {BACKENDS}")
-        if self.backend == "tuned":
-            raise NotImplementedError(
-                "backend='tuned' needs the port of repro.tune (measured "
-                "device profiles); use 'auto' or 'kernel'")
 
     def threshold(self, trans: str) -> float:
         base = (paper_table.PAPER_SMALL_THRESHOLD_TN if trans == "TN"
@@ -109,9 +112,10 @@ class Decision:
     """How one op was routed — inspectable, so tests can prove which path
     decided."""
     use_kernel: bool
-    source: str                    # "forced" | "analytical"
+    source: str                    # "forced" | "profile" | "analytical"
     op: str = "gemm"
     blocks: Optional[Tuple[int, int, int]] = None  # grouped table instance
+    sig: Optional[kernelgen.KernelSig] = None      # tuned 2-D plan override
 
 
 # --------------------------------------------------------------------------
@@ -166,7 +170,7 @@ def named_policy(name: str) -> Policy:
     ``library`` — every model matmul straight to ``torch.matmul``.
     ``kernel``  — every routed GEMM forced through the IAAT kernel.
     ``auto``    — the analytical input-aware criterion decides.
-    ``tuned``   — route by a measured profile (raises: not ported yet).
+    ``tuned``   — route by the measured profile (``repro_torch.tune``).
     """
     if name == "library":
         return Policy(backend="library", iaat=False)
@@ -205,10 +209,12 @@ class Router:
         return _resolve(self._policy)
 
     def route(self, op: str, dims, dtype, trans: str = "NN") -> Decision:
-        """Route one problem: forced backends first, then the analytical
-        criterion.  With observability on, every call lands in the
-        ``obs.ROUTES`` shape log, whose entry doubles as a decision memo
-        (pure in op, dims, dtype, trans and the Policy object)."""
+        """Route one problem: forced backends first, then the measured
+        profile (``tuned``), then the analytical criterion.  With
+        observability on, every call lands in the ``obs.ROUTES`` shape
+        log, whose entry doubles as a decision memo (pure in op, dims,
+        dtype, trans, the Policy object and the active profile: a profile
+        swap resets the log)."""
         if op not in OPS:
             raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
         pol = self.policy
@@ -245,6 +251,12 @@ class Router:
             return Decision(True, "forced", op)
         if pol.backend == "library":
             return Decision(False, "forced", op)
+        if pol.backend == "tuned":
+            entry = Router._profile_entry(M, N, K, letter, trans)
+            if entry is not None:
+                if entry.prefer_kernel:
+                    return Decision(True, "profile", op, sig=entry.sig)
+                return Decision(False, "profile", op)
         use = small_enough(M, N, K, trans, pol) and plan_mod.build_plan(
             M, N, K, letter, trans).num_kernel_calls <= MAX_PLAN_REGIONS
         return Decision(use, "analytical", op)
@@ -255,7 +267,11 @@ class Router:
         """Grouped ops: the per-group (C, K, N) problem is the routing unit
         (for ragged, the per-tile (bm, K, N)); the table instance travels
         in ``Decision.blocks``, populated under every backend because the
-        kernel entries need it.  Letters without a kernel get none."""
+        kernel entries need it.  Letters without a grouped kernel get
+        none.  Under ``tuned`` an entry measured on the grouped kernel
+        decides, else the 2-D entry of the per-group shape; its winner is
+        a whole table instance, which the ragged kernel takes as it is
+        (its row tile is a separate argument)."""
         G, C, K, N = _grouped_problem(op, dims)
         blocks = None
         if letter in kernelgen.KERNEL_LETTERS:
@@ -266,8 +282,39 @@ class Router:
             return Decision(True, "forced", op, blocks)
         if pol.backend == "library":
             return Decision(False, "forced", op, blocks)
+        if pol.backend == "tuned":
+            entry = Router._grouped_profile_entry(C, N, K, letter)
+            if entry is not None:
+                if entry.sig is not None and blocks is not None:
+                    blocks = (entry.sig.bm, entry.sig.bn, entry.sig.bk)
+                return Decision(entry.prefer_kernel, "profile", op, blocks,
+                                sig=entry.sig)
         return Decision(small_enough(C, N, K, "NN", pol), "analytical", op,
                         blocks)
+
+    @staticmethod
+    def _profile_entry(M, N, K, letter, trans):
+        from repro_torch.tune import profile as profile_mod
+        prof = profile_mod.active_profile()
+        if prof is None:
+            return None
+        entry = prof.lookup_dims(M, N, K, letter, trans)
+        if entry is None or not entry.measured:
+            return None
+        return entry
+
+    @staticmethod
+    def _grouped_profile_entry(C, N, K, letter):
+        from repro_torch.tune import profile as profile_mod
+        prof = profile_mod.active_profile()
+        if prof is None:
+            return None
+        entry = prof.lookup_grouped_dims(C, N, K, letter)
+        if entry is None or not entry.measured:
+            entry = prof.lookup_dims(C, N, K, letter, "NN")
+        if entry is None or not entry.measured:
+            return None
+        return entry
 
 
 _ROUTER = Router()
@@ -312,11 +359,12 @@ def _lib_gemm(a, b, c, alpha, beta, trans: str):
     return templates.epilogue_axpby(prod, c, alpha, beta, out_dtype)
 
 
-def _plan_gemm(a, b, c, alpha, beta, trans: str):
-    """Kernel path: every region of the plan is one kernel launch."""
+def _plan_gemm(d: Decision, a, b, c, alpha, beta, trans: str):
+    """Kernel path: every region of the plan is one kernel launch; a
+    profile's winner (``d.sig``) pins a one-region plan."""
     M, N, K = _problem_dims(a.shape, b.shape, trans)
     letter = kernelgen.blas_letter(torch.promote_types(a.dtype, b.dtype))
-    p = plan_mod.build_plan(M, N, K, letter, trans)
+    p = plan_mod.build_plan(M, N, K, letter, trans, override=d.sig)
     return plan_mod.execute(p, a, b, c, alpha, beta)
 
 
@@ -334,7 +382,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     d = route("gemm", (M, N, K), letter, trans, policy=pol)
     if not d.use_kernel:
         return _lib_gemm(a, b, c, alpha, beta, trans)
-    return _plan_gemm(a, b, c, alpha, beta, trans)
+    return _plan_gemm(d, a, b, c, alpha, beta, trans)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -356,7 +404,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     if not d.use_kernel:
         out = _lib_gemm(x2, w, None, 1.0, 0.0, "NN")
     else:
-        out = _plan_gemm(x2, w, None, 1.0, 0.0, "NN")
+        out = _plan_gemm(d, x2, w, None, 1.0, 0.0, "NN")
     return out.reshape(*lead, w.shape[-1])
 
 

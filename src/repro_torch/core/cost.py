@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Tuple
 
+from repro_torch.core import kernelgen, templates
+
 # --- hardware constants (NVIDIA H100 SXM data sheet) ----------------------
 PEAK_FLOPS_BF16 = 989e12        # tensor cores, dense
 PEAK_FLOPS_F32 = 67e12          # CUDA cores (no tensor cores)
@@ -28,9 +30,11 @@ HBM_BW = 3.35e12                # bytes/s
 RIDGE_BF16 = PEAK_FLOPS_BF16 / HBM_BW
 
 #: the peak each BLAS letter can reach on the card, for the bound a
-#: kernel's time is compared against
+#: kernel's time is compared against; a complex letter is its plane type's
+#: (C: f32, Z: f64), since the Karatsuba product is real arithmetic
 PEAK_BY_LETTER = {"H": PEAK_FLOPS_BF16, "S": PEAK_FLOPS_F32,
-                  "D": PEAK_FLOPS_F64}
+                  "D": PEAK_FLOPS_F64, "C": PEAK_FLOPS_F32,
+                  "Z": PEAK_FLOPS_F64}
 ITEMSIZE = {"H": 2, "S": 4, "D": 8, "C": 8, "Z": 16}
 
 
@@ -44,11 +48,6 @@ def memops_blocks(blocks: Iterable[Tuple[int, int]], K: int, M: int,
 def memops_coeff(blocks: Iterable[Tuple[int, int]]) -> int:
     """Just the K coefficient Σ(m_i+n_i) (what the tiler minimizes)."""
     return sum(m + n for m, n in blocks)
-
-
-def gemm_flops(M: int, N: int, K: int, complex_: bool = False) -> int:
-    """Paper eq. (1)/(2): 2MNK real, 8MNK complex (they count 4x)."""
-    return (8 if complex_ else 2) * M * N * K
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +69,13 @@ class RooflineEstimate:
 def gemm_roofline(M: int, N: int, K: int, letter: str, *,
                   has_c: bool = False) -> RooflineEstimate:
     """Least time one H100 could take for C = αAB (+βC): each input read
-    once, the output written once, the operations at the letter's peak."""
+    once, the output written once, the operations at the letter's peak.
+    A complex letter counts the Karatsuba's own work, 6MNK + 5MN real
+    operations (``templates.contract_flops``), not the paper's 8MNK: the
+    bound is the least work that computes the function."""
     item = ITEMSIZE[letter]
     traffic = (M * K + K * N + M * N * (2 if has_c else 1)) * item
-    flops = gemm_flops(M, N, K)
+    flops = templates.contract_flops(
+        M, N, K, complex_=kernelgen.IS_COMPLEX.get(letter, False))
     return RooflineEstimate(flops, traffic, flops / PEAK_BY_LETTER[letter],
                             traffic / HBM_BW)

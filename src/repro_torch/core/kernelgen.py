@@ -14,7 +14,9 @@ instance is keyed by (dtype, bm, bn, bk) alone.
 
 dtype naming follows BLAS/the paper: S = float32, D = float64,
 C = complex64, Z = complex128, plus H = bfloat16 for the framework layer.
-C/Z have no CUDA kernel yet (the Karatsuba kernel is still to be ported).
+S/D/H run the real kernel (``csrc/iaat_gemm.cu``); C/Z run the complex
+Karatsuba kernel (``csrc/cx_gemm.cu``), whose three accumulator planes
+give them a smaller table (DESIGN_PORT.md §9).
 """
 from __future__ import annotations
 
@@ -38,8 +40,13 @@ REAL_OF = {"S": torch.float32, "D": torch.float64,
 IS_COMPLEX = {"S": False, "D": False, "C": True, "Z": True}
 # extra dtypes the framework layer uses (not in the paper's BLAS set)
 FRAMEWORK_DTYPES = {"H": torch.bfloat16}
-#: letters with a CUDA kernel, in the order of their code in the C ABI
+#: letters of the real kernels (iaat_gemm.cu and the grouped kernels)
 KERNEL_LETTERS = ("S", "D", "H")
+#: letters of the complex Karatsuba kernel (cx_gemm.cu); no grouped kernel
+COMPLEX_LETTERS = ("C", "Z")
+#: every letter of the install-time table, in the order of its code in
+#: the C ABI (-DIAAT_LETTER)
+TABLE_LETTERS = KERNEL_LETTERS + COMPLEX_LETTERS
 
 
 def blas_letter(dtype: torch.dtype) -> str:
@@ -52,7 +59,7 @@ def blas_letter(dtype: torch.dtype) -> str:
 @dataclasses.dataclass(frozen=True, order=True)
 class KernelSig:
     """Identity of one generated kernel (the paper's TABLE I row entry)."""
-    letter: str          # S/D/H
+    letter: str          # S/D/C/Z/H
     trans: str           # NN/NT/TN/TT
     bm: int
     bn: int
@@ -87,6 +94,7 @@ class KernelSig:
 
     def footprint(self) -> vmem.Footprint:
         return vmem.footprint(self.bm, self.bn, self.bk, self.real_dtype,
+                              complex_=self.complex_,
                               acc_dtype=self.acc_dtype)
 
 
@@ -95,9 +103,11 @@ class KernelSig:
 #
 # Heights are multiples of the 16-row grain, widths of the 64-column
 # grain (vmem.GRAIN_N); bk is one or two 128-byte lines of f32.  A
-# candidate survives when the kernel's thread layout tiles it, its two
-# shared tiles fit the 227 KB opt-in budget and its accumulators stay
-# within the register cap.  That leaves 22 S, 22 H and 18 D instances.
+# candidate survives when the kernel's thread layout tiles it, its shared
+# tiles fit the 227 KB opt-in budget and its accumulators stay within the
+# register cap.  That leaves 22 S, 22 H and 18 D instances; the complex
+# kernel stages two planes of each operand and keeps three accumulator
+# planes (Karatsuba P1, P2, P3), which leaves 12 C and 6 Z.
 # --------------------------------------------------------------------------
 
 _BM_CANDIDATES = (16, 32, 64, 128)
@@ -110,11 +120,7 @@ def kernel_table(letter: str, trans: str) -> Tuple[KernelSig, ...]:
     """All legal generated kernels for one (dtype, transposition)."""
     if trans not in TRANSPOSITIONS:
         raise ValueError(trans)
-    if IS_COMPLEX.get(letter):
-        raise NotImplementedError(
-            f"{letter}GEMM: the complex (Karatsuba) kernel is not ported "
-            "to Hopper yet")
-    if letter not in KERNEL_LETTERS:
+    if letter not in TABLE_LETTERS:
         raise ValueError(letter)
     out: List[KernelSig] = []
     for bm in _BM_CANDIDATES:
@@ -133,7 +139,7 @@ def kernel_table(letter: str, trans: str) -> Tuple[KernelSig, ...]:
 def full_table() -> Tuple[KernelSig, ...]:
     """The complete install-time kernel census (paper TABLE I analogue)."""
     sigs: List[KernelSig] = []
-    for letter in KERNEL_LETTERS:
+    for letter in TABLE_LETTERS:
         for trans in TRANSPOSITIONS:
             sigs.extend(kernel_table(letter, trans))
     return tuple(sigs)
@@ -179,7 +185,7 @@ def install() -> int:
 def census() -> Dict[str, int]:
     """Kernel counts per (dtype, trans) — the TABLE I shape of our table."""
     out: Dict[str, int] = {}
-    for letter in KERNEL_LETTERS:
+    for letter in TABLE_LETTERS:
         for tr in TRANSPOSITIONS:
             out[f"{letter}GEMM_{tr}"] = len(kernel_table(letter, tr))
     return out

@@ -6,11 +6,13 @@ its counterpart is easy to find, but on an H100 the two scarce resources
 of one CUDA block are these (DESIGN_PORT.md §1):
 
 1. *Shared memory.*  The kernel stages one (bk x bm) tile of A and one
-   (bk x bn) tile of B per K step.  A block may use 227 KB of the SM's
+   (bk x bn) tile of B per K step (the complex kernel two of each: the
+   real and the imaginary plane).  A block may use 227 KB of the SM's
    256 KB, above 48 KB only as dynamic shared memory after an opt-in;
    :func:`footprint` checks a candidate against that budget.
 2. *Registers.*  Each of the kernel's 256 threads keeps bm*bn/256
-   accumulators (two 32-bit registers each for f64).  :func:`reg_pressure`
+   accumulators (two 32-bit registers each for f64; three planes of them,
+   Karatsuba's P1, P2 and P3, in the complex kernel).  :func:`reg_pressure`
    replaces ``vreg_pressure``: the table keeps the accumulators at or
    under :data:`ACC_REG_CAP` registers so a thread stays well inside the
    255-register limit and two blocks fit on one SM's 65,536 registers.
@@ -82,21 +84,29 @@ class Footprint:
         return self.total <= SMEM_OPTIN_BYTES and self.acc_regs <= ACC_REG_CAP
 
 
-def reg_pressure(bm: int, bn: int, acc_dtype=torch.float32) -> int:
-    """Accumulator registers per thread for a (bm x bn) C block."""
+def reg_pressure(bm: int, bn: int, acc_dtype=torch.float32, *,
+                 complex_: bool = False) -> int:
+    """Accumulator registers per thread for a (bm x bn) C block; the
+    complex (Karatsuba) kernel keeps three planes, P1, P2 and P3."""
     words = max(1, itemsize(acc_dtype) // 4)
-    return -(-bm * bn // NTHREADS) * words
+    planes = 3 if complex_ else 1
+    return -(-bm * bn // NTHREADS) * words * planes
 
 
-def footprint(bm: int, bn: int, bk: int, dtype, *,
+def footprint(bm: int, bn: int, bk: int, dtype, *, complex_: bool = False,
               acc_dtype=torch.float32) -> Footprint:
     """Shared bytes and accumulator registers of one (bm, bn, bk) block:
     the A tile bk x (bm + pad) and the B tile bk x (bn + pad), staged once
-    per K step (no double buffering in this kernel)."""
+    per K step (no double buffering in this kernel).  ``dtype`` is the
+    plane type; a complex block stages a real and an imaginary plane of
+    each tile (the Karatsuba sums Ar+Ai, Br+Bi are formed in registers,
+    not staged)."""
     item, p = itemsize(dtype), pad(dtype)
-    a = bk * (bm + p) * item
-    b = bk * (bn + p) * item
-    return Footprint(a, b, reg_pressure(bm, bn, acc_dtype), a + b)
+    planes = 2 if complex_ else 1
+    a = bk * (bm + p) * item * planes
+    b = bk * (bn + p) * item * planes
+    return Footprint(a, b, reg_pressure(bm, bn, acc_dtype,
+                                        complex_=complex_), a + b)
 
 
 def thread_layout_ok(bm: int, bn: int) -> bool:

@@ -2,11 +2,13 @@
 
 At first use :func:`load` compiles each source of :data:`SOURCES`
 (``csrc/iaat_gemm.cu``, ``csrc/grouped_gemm.cu``, both on the shared
-``csrc/tile.cuh``) once per letter (S, D, H), each object holding the
-template instances the install-time table (``core.kernelgen``) lists for
-that letter, and each source of :data:`SOURCES_ONCE`
+``csrc/tile.cuh``) once per real letter (S, D, H), each source of
+:data:`SOURCES_CX` (``csrc/cx_gemm.cu``, the complex Karatsuba kernel)
+once per complex letter (C, Z), each object holding the template
+instances the install-time table (``core.kernelgen``) lists for that
+letter, and each source of :data:`SOURCES_ONCE`
 (``csrc/flash_attention.cu``, its f32 and bf16 instances in one object)
-once; all seven ``nvcc`` jobs start together.  The objects are linked
+once; all nine ``nvcc`` jobs start together.  The objects are linked
 into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
 hashes the sources, the generated instance lists and the flags, so an
@@ -30,10 +32,13 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.KERNEL_LETTERS)}
-#: kernel sources, each built once per letter; the C entries they export
-#: are ``<stem>_<letter>``
+_LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.TABLE_LETTERS)}
+#: kernel sources, each built once per real letter (S, D, H); the C
+#: entries they export are ``<stem>_<letter>``
 SOURCES = ("iaat_gemm", "grouped_gemm")
+#: kernel sources built once per complex letter (C, Z); there is no
+#: complex grouped kernel, as in the reference
+SOURCES_CX = ("cx_gemm",)
 #: kernel sources built once, their instances independent of the table
 SOURCES_ONCE = ("flash_attention",)
 
@@ -51,7 +56,7 @@ def _nvcc() -> str:
 def _tables() -> Dict[str, str]:
     """Generated instance list per letter: one IAAT_INSTANCE line each."""
     out: Dict[str, str] = {}
-    for letter in kernelgen.KERNEL_LETTERS:
+    for letter in kernelgen.TABLE_LETTERS:
         lines = [f"IAAT_INSTANCE({bm}, {bn}, {bk})"
                  for (lt, bm, bn, bk) in kernelgen.instances() if lt == letter]
         out[letter] = "\n".join(lines) + "\n"
@@ -83,8 +88,11 @@ def build() -> pathlib.Path:
     work = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     for letter, text in _tables().items():
         (work / f"iaat_table_{letter}.inc").write_text(text)
-    jobs = [(src, f"{src}_{letter}.o", [f"-DIAAT_LETTER={code}"])
-            for src in SOURCES for letter, code in _LETTER_CODE.items()]
+    jobs = [(src, f"{src}_{letter}.o",
+             [f"-DIAAT_LETTER={_LETTER_CODE[letter]}"])
+            for srcs, letters in ((SOURCES, kernelgen.KERNEL_LETTERS),
+                                  (SOURCES_CX, kernelgen.COMPLEX_LETTERS))
+            for src in srcs for letter in letters]
     jobs += [(src, f"{src}.o", []) for src in SOURCES_ONCE]
     procs, objs = [], []
     for src, name, defs in jobs:
@@ -138,6 +146,11 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"{stem}_{letter}")
                 fn.argtypes = types
                 fn.restype = i
+        for letter in kernelgen.COMPLEX_LETTERS:
+            fn = getattr(lib, f"cx_gemm_{letter}")
+            fn.argtypes = [i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, p, ll,
+                           ll, i, i, i, d, d, d, d, p]
+            fn.restype = i
         s = ctypes.POINTER(ll)      # four strides
         lib.flash_attention.argtypes = [i, i, p, s, p, s, p, s, p, s, i, i,
                                         i, i, i, i, i, i, ctypes.c_float, p]

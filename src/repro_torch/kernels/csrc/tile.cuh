@@ -1,7 +1,8 @@
-// Shared pieces of the port's GEMM kernels (iaat_gemm.cu, grouped_gemm.cu):
-// the accumulator types, the strided, bounds-checked, zero-filling tile
-// loader, and the K loop of one (BM x BN) output block on CUDA cores.
-// flash_attention.cu uses only the widen/narrow conversions.
+// Shared pieces of the port's GEMM kernels (iaat_gemm.cu, grouped_gemm.cu,
+// cx_gemm.cu): the accumulator types, the strided, bounds-checked,
+// zero-filling tile loader, and the K loop of one (BM x BN) output block
+// on CUDA cores.  flash_attention.cu uses only the widen/narrow
+// conversions.
 //
 // Thread layout (256 threads): each thread owns TM rows x TN = 4 columns
 // of the block, bn/4 threads across a row (core/vmem.py::thread_layout_ok
@@ -151,7 +152,8 @@ __device__ __forceinline__ void store_block(
 }  // namespace iaat
 
 // The element type of the letter a per-letter object is built for
-// (-DIAAT_LETTER=0 S, 1 D, 2 H), and its generated instance list.
+// (-DIAAT_LETTER=0 S, 1 D, 2 H, 3 C, 4 Z; for C and Z the type of one
+// plane, float and double), and its generated instance list.
 #ifdef IAAT_LETTER
 #if IAAT_LETTER == 0
 typedef float Elem;
@@ -165,7 +167,15 @@ typedef double Elem;
 typedef __nv_bfloat16 Elem;
 #define IAAT_TABLE "iaat_table_H.inc"
 #define IAAT_NAME(base) base##_H
+#elif IAAT_LETTER == 3
+typedef float Elem;
+#define IAAT_TABLE "iaat_table_C.inc"
+#define IAAT_NAME(base) base##_C
+#elif IAAT_LETTER == 4
+typedef double Elem;
+#define IAAT_TABLE "iaat_table_Z.inc"
+#define IAAT_NAME(base) base##_Z
 #else
-#error "IAAT_LETTER must be 0 (S), 1 (D) or 2 (H)"
+#error "IAAT_LETTER must be 0 (S), 1 (D), 2 (H), 3 (C) or 4 (Z)"
 #endif
 #endif  // IAAT_LETTER

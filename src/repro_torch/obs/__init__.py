@@ -371,6 +371,14 @@ class RouteLog:
             self._agg.clear()
             self.gen += 1
 
+    def invalidate(self) -> None:
+        """The active tuning profile changed: stale every memoized
+        decision.  The live counts fold into the aggregate first, so they
+        survive; the next route of each key recomputes and re-memoizes."""
+        with self._lock:
+            self._compact_locked()
+            self.gen += 1
+
 
 ROUTES = RouteLog()
 

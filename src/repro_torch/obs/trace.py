@@ -32,6 +32,7 @@ EVENT_TYPES = frozenset((
     "FINISH",         # engine._finish: rid, slot, n_out
     "EVICT",          # paged.CacheMap.release: rid, blocks freed
     "ROUTE_MISS",     # api.Router.route memo-miss: (op, letter, trans, dims)
+    "PROFILE_SWAP",   # tune.profile active-profile transition: tag
 ))
 
 #: One record: (t, type, rid, slot, arg, dur_us).

@@ -61,11 +61,14 @@ def test_memops_objective_matches_reference():
 def test_hopper_table_census_invariants():
     """Every signature obeys the kernel's limits (thread layout, grains,
     227 KB shared budget, accumulator register cap); the four
-    transpositions share one block set (the kernel reads strides)."""
+    transpositions share one block set (the kernels read strides).  The
+    table covers S/D/H (the real kernel) and C/Z (the complex Karatsuba
+    kernel, with two planes staged and three accumulated)."""
     census = kernelgen.census()
-    assert set(census) == {f"{L}GEMM_{t}" for L in kernelgen.KERNEL_LETTERS
+    assert set(census) == {f"{L}GEMM_{t}" for L in kernelgen.TABLE_LETTERS
                            for t in TRANS}
-    for letter in kernelgen.KERNEL_LETTERS:
+    assert set(kernelgen.TABLE_LETTERS) == {"S", "D", "H", "C", "Z"}
+    for letter in kernelgen.TABLE_LETTERS:
         fams = {t: kernelgen.kernel_table(letter, t) for t in TRANS}
         shapes = {t: {(s.bm, s.bn, s.bk) for s in fam}
                   for t, fam in fams.items()}
@@ -81,12 +84,13 @@ def test_hopper_table_census_invariants():
                 assert s.bm % vmem.GRAIN_M == 0 and s.bn % vmem.GRAIN_N == 0
                 assert vmem.thread_layout_ok(s.bm, s.bn)
     assert sum(census.values()) == len(kernelgen.full_table())
-    assert len(kernelgen.instances()) == 22 + 18 + 22
-    with pytest.raises(NotImplementedError):
-        kernelgen.kernel_table("C", "NN")
+    assert len(kernelgen.instances()) == 22 + 18 + 22 + 12 + 6
+    assert [census[f"{L}GEMM_NN"] for L in "CZ"] == [12, 6]
+    with pytest.raises(ValueError):
+        kernelgen.kernel_table("Q", "NN")
 
 
-@pytest.mark.parametrize("letter", kernelgen.KERNEL_LETTERS)
+@pytest.mark.parametrize("letter", kernelgen.TABLE_LETTERS)
 def test_hopper_tiling_covers_aligned_extent(letter):
     rng = np.random.RandomState(7)
     dims = [1, 4, 16, 32, 33, 129, 700, 2048] + list(rng.randint(1, 700, 6))
