@@ -14,6 +14,8 @@ fails the run:
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
+            and GEMMs of mixed operand dtypes (a bf16 or f64 C of an S
+            GEMM, an f32 C of an H GEMM, real x complex) against f64;
 4. serve  — olmo-1b at full width and full depth (16 layers, bf16, random
             weights from a seeded torch.Generator) serves 6 requests
             through PagedEngine (after an uncounted one-request warm-up),
@@ -75,7 +77,24 @@ fails the run:
             every measured class routes by the profile to its winner;
             the measured crossover per letter and transposition;
 17. complex kernels — the complex kernel / plain / torch.matmul times
-            and the bound for C and Z at 80^3, 512^3 and 2048^3.
+            and the bound for C and Z at 80^3, 512^3 and 2048^3;
+18. ssd check — the CUDA SSD scan against its plain version, f32 and bf16:
+            Bt in {1, 3}, S in {1, 17, 100, 128, 300, 2048}, every chunk
+            instance (16, 32, 64, 128), mamba2's smoke (N 16, P 8) and full
+            (N 128, P 64) widths, x, B and C as the strided views the
+            model cuts from its conv output (run after phase 10);
+19. ssm serve — the earlier models' weights freed, mamba2-780m at full
+            width and full depth (48 layers, bf16, random weights) serves
+            6 requests through PagedEngine (after an uncounted warm-up)
+            under ``auto`` and under the forced kernel: IAAT launches > 0
+            under both, SSD launches 0 (serving runs the token-by-token
+            recurrence, as in the reference);
+20. ssm forward — one forward_train over 2 x 2048 tokens, through the
+            kernels (``kernel``: 48 SSD launches exactly) and through the
+            plain arithmetic (``library``: ref.ref_ssd), logits compared;
+            then the same with the weights widened to f32, held tighter;
+21. ssd kernels — SSD kernel / plain / ref.ref_ssd times and the bound
+            at the forward's shape (f32, as the model passes it).
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
@@ -108,6 +127,11 @@ BF16_STEP = 2.0 ** -7
 #: propagates; held to 5% of the largest logit
 STEP_TOL = 5e-2
 MOE_ARCH = "moonshot-v1-16b-a3b"
+SSM_ARCH = "mamba2-780m"
+#: the same full-width forward_train with its weights widened to f32:
+#: kernel and plain then take the same products in f32, summed in other
+#: orders over 48 layers; held to 1e-4 of the largest logit
+FWD_F32_TOL = 1e-4
 
 
 def log(msg):
@@ -125,7 +149,7 @@ def phase_card():
 
 def phase_build():
     from repro_torch.core import kernelgen
-    from repro_torch.kernels import build, flash_attention
+    from repro_torch.kernels import build, flash_attention, ssd
     import re
     t0 = time.perf_counter()
     n = kernelgen.install()
@@ -139,7 +163,7 @@ def phase_build():
                                 ptx))
            for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
                         "ragged_gemm_kernel", "cx_gemm_kernel",
-                        "flash_attention_kernel")}
+                        "flash_attention_kernel", "ssd_scan_kernel")}
     real = sum(1 for i in kernelgen.instances()
                if i[0] in kernelgen.KERNEL_LETTERS)
     cx = n - real
@@ -166,10 +190,12 @@ def phase_build():
         + ", ".join(f"{f['dtype']} D{f['D']} {f['registers']}/"
                     f"{f['spill_stores']}" for f in flash))
     want_flash = 2 * len(flash_attention.HEAD_DIMS)
+    want_ssd = 2 * len(ssd.CHUNKS)
     want = {"iaat_gemm_kernel": real, "batched_gemm_kernel": real,
             "ragged_gemm_kernel": real, "cx_gemm_kernel": cx,
-            "flash_attention_kernel": want_flash}
-    if len(regs) != 3 * real + cx + want_flash or \
+            "flash_attention_kernel": want_flash,
+            "ssd_scan_kernel": want_ssd}
+    if len(regs) != 3 * real + cx + want_flash + want_ssd or \
             len(flash) != want_flash or per != want:
         raise RuntimeError("ptxas reported another kernel count than the "
                            f"table's {want}: {per}")
@@ -181,6 +207,13 @@ def phase_build():
     log(f"build: cx_gemm instances use {min(r for r, _ in cxr)}.."
         f"{max(r for r, _ in cxr)} registers, "
         f"{sum(sp for _, sp in cxr)} bytes of spill stores in all")
+    ssdr = [(int(re.search(r"Used (\d+) registers", e).group(1)),
+             int(re.search(r"(\d+) bytes spill stores", e).group(1)))
+            for e in ptx.split("Compiling entry function")[1:]
+            if "ssd_scan_kernel" in e.split("'")[1]]
+    log(f"build: ssd_scan instances use {min(r for r, _ in ssdr)}.."
+        f"{max(r for r, _ in ssdr)} registers, "
+        f"{sum(sp for _, sp in ssdr)} bytes of spill stores in all")
     return flash
 
 
@@ -228,6 +261,33 @@ def phase_check(torch):
     log("check: worst rel err per letter/trans (tol S 1e-5, H 8e-3, D "
         "1e-12): " + json.dumps({k: float(f"{v:.3g}") for k, v in
                                  worst.items()}))
+    # operands of mixed dtype (DESIGN_PORT.md §6): a and b promoted, c at
+    # the accumulator's precision, held against f64 / complex128
+    f32, bf16, f64 = torch.float32, torch.bfloat16, torch.float64
+    c64, c128 = torch.complex64, torch.complex128
+    for da, db, dc, tol in ((f32, f32, bf16, TOL["S"]),
+                            (f32, f32, f64, TOL["S"]),
+                            (bf16, bf16, f32, TOL["H"]),
+                            (f32, c64, c64, 2e-4), (c128, f64, None, 1e-12)):
+        a = torch.randn((33, 70), generator=g, device="cuda").to(da)
+        b = torch.randn((70, 50), generator=g, device="cuda").to(db)
+        c = None if dc is None else torch.randn(
+            (33, 50), generator=g, device="cuda").to(dc)
+        n0 = iaat_gemm.launch_count()
+        out = api.gemm(a, b, c, 1.5, 0.5, policy=kern)
+        wide = c128 if out.is_complex() else f64
+        want = 1.5 * (a.to(wide) @ b.to(wide))
+        if c is not None:
+            want = want + 0.5 * c.to(wide)
+        torch.cuda.synchronize()
+        _, rel = _rel_err(out, want)
+        what = f"{da} x {db}, c {dc}"
+        if out.dtype != torch.promote_types(da, db) or \
+                iaat_gemm.launch_count() == n0 or not rel <= tol:
+            raise AssertionError(f"mixed dtypes {what}: {out.dtype}, rel "
+                                 f"err {rel} (tol {tol})")
+        log(f"check mixed dtypes {what}: {out.dtype}, rel err {rel:.3g} "
+            f"(tol {tol})")
     main = {}
     for M in (4, 32):
         for (K, N, tied) in MAIN_SHAPES:
@@ -271,20 +331,24 @@ def _main_operands(torch, g, M, K, N, tied, copies=1):
 def _reset_counts():
     """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
-    from repro_torch.kernels import flash_attention, grouped_gemm, iaat_gemm
+    from repro_torch.kernels import (flash_attention, grouped_gemm,
+                                     iaat_gemm, ssd)
     obs.ROUTES.reset()
     iaat_gemm.reset_launch_count()
     grouped_gemm.reset_launch_count()
     flash_attention.reset_launch_count()
+    ssd.reset_launch_count()
 
 
 def _counts():
-    from repro_torch.kernels import flash_attention, grouped_gemm, iaat_gemm
+    from repro_torch.kernels import (flash_attention, grouped_gemm,
+                                     iaat_gemm, ssd)
     return {"iaat_gemm": iaat_gemm.launch_count("iaat_gemm"),
             "cx_gemm": iaat_gemm.launch_count("cx_gemm"),
             "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
             "ragged_gemm": grouped_gemm.launch_count("ragged_gemm"),
-            "flash_attention": flash_attention.launch_count()}
+            "flash_attention": flash_attention.launch_count(),
+            "ssd_scan": ssd.launch_count()}
 
 
 def phase_serve(torch, arch, cfg, requests, max_new, kernels):
@@ -395,7 +459,7 @@ def phase_step(torch, cfg, params):
                                  device="cuda")
             lm.paged_prefill(params, cfg, kern, toks, ps, tables[s:s + 1],
                              torch.zeros(1, dtype=torch.long, device="cuda"),
-                             n)
+                             s, n, n)
         cur = torch.randint(0, cfg.vocab, (slots, 1), generator=g,
                             device="cuda")
         pos = torch.tensor(lens, device="cuda")
@@ -1073,6 +1137,231 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
 
 
 # --------------------------------------------------------------------------
+# The SSM family: mamba2-780m served and scored, the SSD scan kernel.
+# --------------------------------------------------------------------------
+
+#: SSD kernel vs plain in f32: the reference's tolerance for its SSD sweep
+#: (``tests/test_kernels_other.py:114-150``), as allclose
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-5
+
+
+def _ssd_operands(torch, g, Bt, S, H, P, N, dtype):
+    """x, dt, A, B, C as the model passes them: x, B and C strided views
+    cut from one (Bt, S, H P + 2 N) conv row, dt and A in f32; values of
+    the reference tests' scale (``_ssd_inputs``)."""
+    row = (torch.randn((Bt, S, H * P + 2 * N), generator=g, device="cuda")
+           * 0.3).to(dtype)
+    x = row[..., :H * P].reshape(Bt, S, H, P)
+    B = row[..., H * P:H * P + N].reshape(Bt, S, 1, N)
+    C = row[..., H * P + N:].reshape(Bt, S, 1, N)
+    dt = torch.randn((Bt, S, H), generator=g, device="cuda").abs() * 0.1 \
+        + 0.01
+    A = -torch.randn((H,), generator=g, device="cuda").abs() * 0.5 - 0.1
+    return x, dt, A, B, C
+
+
+def _ssd_err(torch, got, want, what):
+    """max|got - want|, held to allclose(SSD_RTOL, SSD_ATOL) in f32 and to
+    one bf16 step of the largest output in bf16."""
+    d = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=SSD_RTOL, atol=SSD_ATOL)
+    else:
+        ok = d <= BF16_STEP * want.float().abs().max().item()
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"ssd {what}: kernel vs plain max abs err {d}")
+    return d
+
+
+def phase_ssd_check(torch, scfg):
+    """The SSD kernel against its plain version on the card."""
+    from repro_torch.kernels import ssd
+    _reset_counts()
+    g = torch.Generator(device="cuda").manual_seed(13)
+    s_full = scfg.ssm
+    widths = {"smoke": (16, 8), "full": (s_full.d_state, s_full.head_dim)}
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {}
+    cases = 0
+    for name, Bt, S, chunk, width in itertools.product(
+            dts, (1, 3), (1, 17, 100, 128, 300, 2048), ssd.CHUNKS, widths):
+        N, P = widths[width]
+        a = _ssd_operands(torch, g, Bt, S, 4, P, N, dts[name])
+        got = ssd.ssd_scan(*a, chunk=chunk)
+        want = ssd.ssd_scan_plain(*a, chunk=chunk)
+        torch.cuda.synchronize()
+        ab = _ssd_err(torch, got, want, f"{name} Bt{Bt} S{S} chunk{chunk} "
+                      f"N{N} P{P}")
+        key = f"{name} {width}"
+        worst[key] = max(worst.get(key, 0.0), ab)
+        cases += 1
+    launches = _counts()["ssd_scan"]
+    if launches != cases:
+        raise AssertionError(f"ssd check: {launches} launches for {cases} "
+                             "cases")
+    log(f"check ssd: {cases} cases (4 heads, strided views), {launches} "
+        f"launches; worst max abs err (f32 allclose rtol {SSD_RTOL} atol "
+        f"{SSD_ATOL}, bf16 one step): "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    return {"cases": cases, "launches": launches, "worst_max_abs": worst}
+
+
+def phase_ssm_serve(torch, scfg):
+    """mamba2-780m through PagedEngine: IAAT launches > 0 (phase_serve's
+    check) and no SSD launch in either run."""
+    runs, params = phase_serve(torch, SSM_ARCH, scfg, 6, 16, ["iaat_gemm"])
+    for backend, r in runs.items():
+        if r["launch_counts"]["ssd_scan"]:
+            raise AssertionError(f"{SSM_ARCH} {backend}: serving launched "
+                                 "the SSD kernel; it runs paged_step")
+    return runs, params
+
+
+def phase_ssm_forward(torch, scfg, params, Bt=2, S=2048):
+    """One full-width forward_train over Bt x S tokens under no_grad,
+    through the kernels (counted from 0: one SSD launch per layer) and
+    through the plain arithmetic (ref.ref_ssd, torch.matmul), logits
+    compared at STEP_TOL.  In bf16 a rounding flip in one layer
+    propagates through the rest, so the same forward is then run with the
+    weights widened to f32 (in place: the phase is their last user) and
+    held to FWD_F32_TOL."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.models import lm
+    g = torch.Generator(device="cuda").manual_seed(17)
+    toks = torch.randint(0, scfg.vocab, (Bt, S), generator=g, device="cuda")
+    out = {"Bt": Bt, "S": S}
+    with torch.no_grad():
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, _ = lm.forward_train(params, scfg, api.Policy(backend="kernel"),
+                                 toks)
+        torch.cuda.synchronize()
+        out["kernel_s"] = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        lp, _ = lm.forward_train(params, scfg, api.Policy(backend="library"),
+                                 toks)
+        torch.cuda.synchronize()
+        out["library_s"] = time.perf_counter() - t0
+    if counts["ssd_scan"] != scfg.n_layers:
+        raise AssertionError(f"forward_train launched the SSD kernel "
+                             f"{counts['ssd_scan']} times, want "
+                             f"{scfg.n_layers}")
+    if counts["iaat_gemm"] <= 0:
+        raise AssertionError("forward_train under kernel: no IAAT launch")
+    if tuple(lk.shape) != (Bt, S, scfg.vocab_padded) or not (
+            torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"forward_train logits {tuple(lk.shape)}, "
+                             "or non-finite")
+    ab, rel = _rel_err(lk, lp)
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    out.update({"launches": counts["ssd_scan"], "launch_counts": counts,
+                "max_abs_err": ab, "rel_err": rel, "argmax_agree": agree})
+    log(f"ssm forward {scfg.name} {Bt}x{S}: kernel {out['kernel_s']:.3f} s "
+        f"(launches {json.dumps(counts)}), library {out['library_s']:.3f} s;"
+        f" logits max abs err {ab:.4g}, rel {rel:.3g} (tol {STEP_TOL}), "
+        f"argmax agreement {agree:.4f}")
+    if not rel <= STEP_TOL:
+        raise AssertionError(f"forward_train rel err {rel} > {STEP_TOL}")
+    del lk, lp
+    params.embed.data = params.embed.data.float()
+    for blk in params.blocks:
+        for w in (blk.mixer.in_proj, blk.mixer.out_proj):
+            w.data = w.data.float()
+    cfg32 = dataclasses.replace(scfg, dtype="float32")
+    with torch.no_grad():
+        lk, _ = lm.forward_train(params, cfg32, api.Policy(backend="kernel"),
+                                 toks)
+        lp, _ = lm.forward_train(params, cfg32,
+                                 api.Policy(backend="library"), toks)
+        torch.cuda.synchronize()
+    ab32, rel32 = _rel_err(lk, lp)
+    out.update({"f32_max_abs_err": ab32, "f32_rel_err": rel32})
+    log(f"ssm forward {scfg.name} {Bt}x{S}, weights widened to f32: logits "
+        f"max abs err {ab32:.4g}, rel {rel32:.3g} (tol {FWD_F32_TOL})")
+    if not (torch.isfinite(lk).all() and rel32 <= FWD_F32_TOL):
+        raise AssertionError(f"f32 forward_train rel err {rel32} > "
+                             f"{FWD_F32_TOL}")
+    return out
+
+
+def _ssd_bound(x, B, chunk):
+    """(flops, bytes) of one SSD scan: per chunk of n real tokens the
+    lower triangles of C Bᵀ (2 N a pair) and of the scores @ x (2 P a
+    pair), C @ h and the state update (2 n N P each); each of x, dt, A,
+    B, C read once and y written once.  The elementwise terms (cumsum,
+    exp, the scalings) are left out: they are O(n^2) or O(n N), under
+    1 % of the dots here."""
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    flops = 0
+    for c0 in range(0, S, chunk):
+        n = min(chunk, S - c0)
+        flops += (n * (n + 1) // 2) * 2 * (N + P) + 2 * (2 * n * N * P)
+    flops *= Bt * H
+    isz = x.element_size()
+    nbytes = (2 * Bt * S * H * P * isz + 2 * Bt * S * N * isz
+              + Bt * S * H * 4 + H * 4)
+    return flops, nbytes
+
+
+def phase_ssd_kernels(torch, scfg, launches, Bt=2, S=2048):
+    """SSD kernel / plain / ref.ref_ssd times and the bound at the
+    forward's shape: Bt x S tokens, mamba2-780m's 48 heads x P 64, N 128,
+    chunk 128, f32 (the conv output the model feeds it is f32).  No single
+    PyTorch call computes the scan, so ``library_ms`` is null; the
+    yardstick is the model's own library path, ``ref.ref_ssd``, timed
+    beside it."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import ref, ssd
+    s = scfg.ssm
+    g = torch.Generator(device="cuda").manual_seed(19)
+    a = _ssd_operands(torch, g, Bt, S, scfg.ssm_heads, s.head_dim,
+                      s.d_state, torch.float32)
+    want = ssd.ssd_scan_plain(*a, chunk=s.chunk)
+    ab = _ssd_err(torch, ssd.ssd_scan(*a, chunk=s.chunk), want,
+                  f"timing shape Bt{Bt} S{S}")
+    t_k = _time_ms(torch, lambda i: ssd.ssd_scan(*a, chunk=s.chunk), 20)
+    t_p = _time_ms(torch, lambda i: ssd.ssd_scan_plain(*a, chunk=s.chunk),
+                   5)
+    t_r = _time_ms(torch, lambda i: ref.ref_ssd(*a, chunk=s.chunk), 5, 1)
+    flops, nbytes = _ssd_bound(a[0], a[3], s.chunk)
+    t_ops, t_bytes = flops / cost.PEAK_FLOPS_F32, nbytes / cost.HBM_BW
+    bound = max(t_ops, t_bytes) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"kernel time ssd_scan f32 Bt={Bt} S={S} H={scfg.ssm_heads} "
+        f"P={s.head_dim} N={s.d_state} chunk={s.chunk}: kernel {t_k:.4f} ms, "
+        f"plain {t_p:.4f} ms, ref_ssd {t_r:.4f} ms, bound {bound:.4f} ms "
+        f"({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+        f"{flops / (t_k * 1e-3) / 1e12:.2f} TFLOP/s); kernel vs plain max "
+        f"abs err {ab:.4g}")
+    row = {"Bt": Bt, "S": S, "H": scfg.ssm_heads, "P": s.head_dim,
+           "N": s.d_state, "chunk": s.chunk, "ms": t_k, "plain_ms": t_p,
+           "ref_ssd_ms": t_r, "bound_ms": bound, "bound_by": by,
+           "flops": flops, "bytes": nbytes, "max_abs_err": ab}
+    entry = {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:25",
+        "launches": launches,
+        "max_abs_err": ab,
+        "ms": t_k,
+        "plain_ms": t_p,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "ref_ssd_ms": t_r,
+        "at": f"one {scfg.name} forward_train layer's scan, Bt {Bt} x S {S} "
+              f"x {scfg.ssm_heads} heads x P {s.head_dim}, N {s.d_state}, "
+              f"chunk {s.chunk}, f32; launches per forward_train",
+    }
+    return entry, [row]
+
+
+# --------------------------------------------------------------------------
 # The paper's S/D/C/Z grid: the complex kernel, the pack baseline, the
 # install-time tuner.
 # --------------------------------------------------------------------------
@@ -1472,6 +1761,7 @@ def main():
     from repro_torch import configs
     cfg = configs.get_config("olmo-1b")
     mcfg = configs.get_config(MOE_ARCH)
+    scfg = configs.get_config(SSM_ARCH)
     MAIN_SHAPES[:] = [(cfg.d_model, cfg.d_model, False),
                       (cfg.d_model, cfg.d_ff, False),
                       (cfg.d_ff, cfg.d_model, False),
@@ -1499,6 +1789,8 @@ def main():
         report["pack"] = timed("pack baseline", phase_pack, torch)
         report["flash_check"] = timed("flash check", phase_flash_check,
                                       torch)
+        report["ssd_check"] = timed("ssd check", phase_ssd_check, torch,
+                                    scfg)
         report["serve"], params = timed("serve", phase_serve, torch,
                                         "olmo-1b", cfg, 6, 16, ["iaat_gemm"])
         report["step"] = timed("step", phase_step, torch, cfg, params)
@@ -1517,6 +1809,12 @@ def main():
                                    params)
         del params
         torch.cuda.empty_cache()
+        report["ssm_serve"], params = timed("ssm serve", phase_ssm_serve,
+                                            torch, scfg)
+        report["ssm_forward"] = timed("ssm forward", phase_ssm_forward,
+                                      torch, scfg, params)
+        del params
+        torch.cuda.empty_cache()
         entry, rows = timed("kernels", phase_kernels, torch, cfg,
                             report["serve"]["auto"]["launches"], max_err)
         launches = {"batched_gemm": report["moe_serve"]["auto"]["launches"],
@@ -1529,6 +1827,9 @@ def main():
             "flash kernels", phase_flash_kernels, torch, cfg,
             tuple(wave["prefill_shapes"][0]),
             wave["launch_counts"]["flash_attention"])
+        ssd_entry, ssd_rows = timed(
+            "ssd kernels", phase_ssd_kernels, torch, scfg,
+            report["ssm_forward"]["launches"])
         report["tune"] = timed("tune", phase_tune, torch, mcfg)
         grid = report["grid_check"]
         cx, cx_rows = timed(
@@ -1539,8 +1840,8 @@ def main():
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    report["kernels"] = [entry] + grouped + [flash, cx]
-    report["shapes"] = rows + grouped_rows + flash_rows + cx_rows
+    report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry]
+    report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig
 ARCH_IDS: List[str] = [
     "olmo-1b",
     "moonshot-v1-16b-a3b",
+    "mamba2-780m",
 ]
 
 

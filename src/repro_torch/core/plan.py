@@ -156,11 +156,17 @@ def execute(plan: Plan, a: torch.Tensor, b: torch.Tensor,
     ``torch.empty`` output is written by exactly one region kernel, each
     straight into its strided view.  When autograd records the call, each
     region's result is instead copied into its view, so the copy carries
-    the gradient (training only; serving never takes that path)."""
+    the gradient (training only; serving never takes that path).
+
+    Operands of mixed dtype are first brought to their promoted type, as
+    the reference's ``_cx_call`` casts each plane: a real x complex GEMM
+    runs the complex kernel on a zero imaginary plane.  ``c`` of any dtype
+    is cast by the region (``iaat_gemm.c_dtype``)."""
     from repro_torch.kernels import iaat_gemm
     M, N, trans = plan.M, plan.N, plan.trans
-    out = torch.empty((M, N), dtype=torch.promote_types(a.dtype, b.dtype),
-                      device=a.device)
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a, b = a.to(dtype), b.to(dtype)
+    out = torch.empty((M, N), dtype=dtype, device=a.device)
     a_m_axis = 0 if trans[0] == "N" else 1
     b_n_axis = 1 if trans[1] == "N" else 0
     for r in plan.regions:

@@ -7,8 +7,9 @@ At first use :func:`load` compiles each source of :data:`SOURCES`
 once per complex letter (C, Z), each object holding the template
 instances the install-time table (``core.kernelgen``) lists for that
 letter, and each source of :data:`SOURCES_ONCE`
-(``csrc/flash_attention.cu``, its f32 and bf16 instances in one object)
-once; all nine ``nvcc`` jobs start together.  The objects are linked
+(``csrc/flash_attention.cu`` and ``csrc/ssd.cu``, each with its f32 and
+bf16 instances in one object) once; all ten ``nvcc`` jobs start
+together.  The objects are linked
 into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
 hashes the sources, the generated instance lists and the flags, so an
@@ -40,7 +41,7 @@ SOURCES = ("iaat_gemm", "grouped_gemm")
 #: complex grouped kernel, as in the reference
 SOURCES_CX = ("cx_gemm",)
 #: kernel sources built once, their instances independent of the table
-SOURCES_ONCE = ("flash_attention",)
+SOURCES_ONCE = ("flash_attention", "ssd")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -155,6 +156,9 @@ def load() -> ctypes.CDLL:
         lib.flash_attention.argtypes = [i, i, p, s, p, s, p, s, p, s, i, i,
                                         i, i, i, i, i, i, ctypes.c_float, p]
         lib.flash_attention.restype = i
+        lib.ssd_scan.argtypes = [i, i, p, s, p, s, p, p, s, p, s, p, s, i, i,
+                                 i, i, i, p]
+        lib.ssd_scan.restype = i
         lib.iaat_error_string.argtypes = [i]
         lib.iaat_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -27,7 +27,10 @@
 //     and keeps NaN garbage out of the sums;
 //   * each thread accumulates TM x 4 outputs in f32 (S, H) or f64 (D);
 //   * epilogue as templates.epilogue_axpby: alpha*acc + beta*C in the
-//     accumulator type, then one cast, stored through C's strides.
+//     accumulator type, then one cast, stored through C's strides.  C is
+//     read in the accumulator type (f32 for S and H, f64 for D): the
+//     wrapper casts a C of any other dtype to it, so an f32 C of an H
+//     GEMM is never rounded through bf16.
 //
 // Built by repro_torch/kernels/build.py: one object per letter
 // (-DIAAT_LETTER=0 S, 1 D, 2 H), each including the generated list of
@@ -43,8 +46,8 @@ template <typename T, int BM, int BN, int BK>
 __global__ void __launch_bounds__(NT)
 iaat_gemm_kernel(const T* __restrict__ A, int64_t a_sm, int64_t a_sk,
                  const T* __restrict__ B, int64_t b_sk, int64_t b_sn,
-                 const T* __restrict__ C, int64_t c_sm, int64_t c_sn,
-                 T* __restrict__ O, int64_t o_sm, int64_t o_sn,
+                 const typename AccOf<T>::type* __restrict__ C, int64_t c_sm,
+                 int64_t c_sn, T* __restrict__ O, int64_t o_sm, int64_t o_sn,
                  int M, int N, int K, double alpha, double beta) {
   typedef typename AccOf<T>::type Acc;
   typedef Layout<BM, BN> L;
@@ -66,7 +69,7 @@ iaat_gemm_kernel(const T* __restrict__ A, int64_t a_sm, int64_t a_sk,
       const int n = n0 + tx + j * L::TX;
       if (n >= N) continue;
       Acc v = al * acc[i][j];
-      if (C != nullptr) v = v + be * widen(C[(int64_t)m * c_sm + (int64_t)n * c_sn]);
+      if (C != nullptr) v = v + be * C[(int64_t)m * c_sm + (int64_t)n * c_sn];
       O[(int64_t)m * o_sm + (int64_t)n * o_sn] = narrow<T>(v);
     }
   }
@@ -79,9 +82,10 @@ cudaError_t launch(const void* a, int64_t a_sm, int64_t a_sk,
                    void* o, int64_t o_sm, int64_t o_sn,
                    int M, int N, int K, double alpha, double beta,
                    cudaStream_t stream) {
+  typedef typename AccOf<T>::type Acc;
   constexpr size_t smem = smem_bytes<T, BM, BN, BK>();
   void (*kern)(const T*, int64_t, int64_t, const T*, int64_t, int64_t,
-               const T*, int64_t, int64_t, T*, int64_t, int64_t,
+               const Acc*, int64_t, int64_t, T*, int64_t, int64_t,
                int, int, int, double, double) = iaat_gemm_kernel<T, BM, BN, BK>;
   if (smem > 48 * 1024) {
     // opt in to dynamic shared memory above 48 KB, once per instance
@@ -92,7 +96,7 @@ cudaError_t launch(const void* a, int64_t a_sm, int64_t a_sk,
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(a), a_sm, a_sk, static_cast<const T*>(b), b_sk, b_sn,
-      static_cast<const T*>(c), c_sm, c_sn, static_cast<T*>(o), o_sm, o_sn,
+      static_cast<const Acc*>(c), c_sm, c_sn, static_cast<T*>(o), o_sm, o_sn,
       M, N, K, alpha, beta);
   return cudaGetLastError();
 }

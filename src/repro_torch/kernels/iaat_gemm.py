@@ -57,6 +57,14 @@ def reset_launch_count() -> None:
         _launches[k] = 0
 
 
+def c_dtype(sig: KernelSig) -> torch.dtype:
+    """The dtype ``c`` reaches a region in: the accumulator's for S/D/H
+    (so an f32 ``c`` of an H GEMM is never rounded through bf16), the
+    complex type for C/Z.  :func:`gemm_region` casts any other ``c`` to
+    it; the CUDA kernels read ``c`` in it."""
+    return sig.dtype if sig.complex_ else sig.acc_dtype
+
+
 def records_grad(*ts: Optional[torch.Tensor]) -> bool:
     """Whether autograd would record a call on these operands."""
     return torch.is_grad_enabled() and any(
@@ -119,10 +127,11 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out):
     for name, t in (("b", b), ("c", c), ("out", out)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} on {t.device}, a on {dev}")
-    for name, t in (("a", a), ("b", b), ("c", c), ("out", out)):
-        if t is not None and t.dtype != sig.dtype:
+    for name, t, want in (("a", a, sig.dtype), ("b", b, sig.dtype),
+                          ("c", c, c_dtype(sig)), ("out", out, sig.dtype)):
+        if t is not None and t.dtype != want:
             raise TypeError(f"{sig.name}: {name} is {t.dtype}, the kernel "
-                            f"takes {sig.dtype}")
+                            f"takes {want}")
     if c is not None and tuple(c.shape) != (M, N):
         raise ValueError(f"c {tuple(c.shape)} != ({M}, {N})")
     if out is None:
@@ -222,7 +231,11 @@ def gemm_region(sig: KernelSig, a, b, c=None, *, alpha=1.0, beta=0.0,
     are differentiable (then ``out`` is not used: the result is a fresh
     tensor the caller places); complex regions are forward-only (the
     paper's C/Z BLAS entries are not training paths) and raise when
-    autograd would record them, on any device."""
+    autograd would record them, on any device.  ``a`` and ``b`` are in
+    ``sig.dtype`` (``plan.execute`` promotes them); a ``c`` of any dtype
+    enters in :func:`c_dtype` and the result is in ``sig.dtype``."""
+    if c is not None:
+        c = c.to(c_dtype(sig))
     if sig.complex_ and records_grad(a, b, c):
         raise RuntimeError(
             f"{sig.name}: complex IAAT regions are forward-only (no "

@@ -1,8 +1,10 @@
 """Plain PyTorch oracles (counterparts of ``repro/kernels/ref.py``).
 
-The GEMM, grouped-GEMM, RMSNorm and attention oracles are ported so far;
-the SSD oracles come with their kernel.  ``chunked_mha`` is also the
-model's library attention path (``models/layers.py::_full_attn``).  The
+The GEMM, grouped-GEMM, RMSNorm, attention and Mamba-2 SSD oracles.
+``chunked_mha`` is also the model's library attention path
+(``models/layers.py::_full_attn``), ``ref_ssd`` the model's library SSD
+path (``models/ssm.py::mamba``) and ``ref_ssd_decode_step`` the serving
+recurrence of every SSM serving path (``models/ssm.py::paged_step``).  The
 GEMM oracles are kept independent of ``core/templates.py`` on purpose:
 ``ref_gemm`` rounds to the output dtype before it adds beta*C, as the
 reference's oracle does, where the kernel and the library path add beta*C
@@ -144,3 +146,94 @@ def chunked_mha(q, k, v, *, causal: bool = True,
         m = m_new
     out = acc / torch.clamp(l, min=1e-37)[..., None]
     return out.to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality).
+# --------------------------------------------------------------------------
+
+def ref_ssd_recurrent(x, dt, A, B, C, *, D_skip=None):
+    """Ground-truth sequential recurrence (one step per token).
+
+    x: (Bt, S, H, P); dt: (Bt, S, H); A: (H,) (negative);
+    B, C: (Bt, S, G, N) with G == 1 broadcast over heads.
+    h_t = exp(dt*A) h_{t-1} + dt * B_t x_t ;  y_t = C_t . h_t
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B.float()[:, :, 0], C.float()[:, :, 0]     # (Bt, S, N)
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        da = torch.exp(dtf[:, t] * A[None, :])              # (Bt, H)
+        inp = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]
+               * Bf[:, t, None, None, :])                   # (Bt,H,P,N)
+        h = h * da[..., None, None] + inp
+        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+    y = torch.stack(ys, 1)                                  # (Bt,S,H,P)
+    if D_skip is not None:
+        y = y + D_skip[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ref_ssd(x, dt, A, B, C, *, D_skip=None, chunk: int = 64,
+            return_state: bool = False):
+    """Chunked SSD (arXiv:2405.21060 §6): intra-chunk 'attention-like'
+    term + inter-chunk state recurrence, one chunk per loop step.
+
+    Mathematically identical to :func:`ref_ssd_recurrent`; the model's
+    library path.  The loop keeps the working set at one chunk: the
+    vectorised form would materialise a (Bt, nc, c, c, H) decay tensor.
+    """
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    nc = -(S // -chunk)
+    pad = nc * chunk - S
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = B.float()[:, :, 0], C.float()[:, :, 0]     # (Bt, S, N)
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        Bf = torch.nn.functional.pad(Bf, (0, 0, 0, pad))
+        Cf = torch.nn.functional.pad(Cf, (0, 0, 0, pad))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    zero = torch.zeros((), device=x.device)
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for ci in range(nc):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dtc, Bc, Cc = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        dA = dtc * A[None, None, :]                         # (Bt, c, H)
+        cum = torch.cumsum(dA, dim=1)                       # inclusive
+        tot = cum[:, -1]                                    # (Bt, H)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]     # (Bt,t,s,H)
+        L = torch.where(tri[None, :, :, None], torch.exp(decay), zero)
+        cb = torch.einsum("btn,bsn->bts", Cc, Bc)
+        scores = cb[..., None] * L * dtc[:, None]           # (Bt,t,s,H)
+        y = torch.einsum("btsh,bshp->bthp", scores, xc)
+        y = y + torch.einsum("btn,bhpn->bthp", Cc, h) \
+            * torch.exp(cum)[..., None]
+        w = (dtc * torch.exp(tot[:, None] - cum))[..., None] * xc
+        h = h * torch.exp(tot)[..., None, None] \
+            + torch.einsum("bchp,bcn->bhpn", w, Bc)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :S]
+    if D_skip is not None:
+        y = y + D_skip[None, None, :, None] * x.float()
+    y = y.to(x.dtype)
+    if return_state:
+        return y, h
+    return y
+
+
+def ref_ssd_decode_step(h, x_t, dt_t, A, B_t, C_t):
+    """One-token SSM recurrence for serving (state in, state out).
+
+    h: (Bt,H,P,N); x_t: (Bt,H,P); dt_t: (Bt,H); B_t/C_t: (Bt,N)."""
+    da = torch.exp(dt_t * A[None, :])
+    h = h * da[..., None, None] + (dt_t[..., None, None]
+                                   * x_t[..., None] * B_t[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", h, C_t)
+    return h, y

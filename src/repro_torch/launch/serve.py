@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --backend auto --requests 6 --max-new 16
 
+``--arch`` takes every ported config: olmo-1b, moonshot-v1-16b-a3b and
+mamba2-780m (the ssm family, whose carries live in the engine's per-slot
+rows).
+
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions).  Weights are random, drawn from ``--seed`` by a

@@ -1,7 +1,8 @@
-"""Decoder-only LM, dense and MoE families, for serving: the wave path
-(:func:`prefill`, :func:`decode` over an :class:`LMCache`) and the paged
-path (:func:`paged_prefill`, :func:`paged_decode` over a
-:class:`PagedState`) (counterpart of ``repro/models/lm.py``).
+"""Decoder-only LM, dense, MoE and SSM families: the wave serving path
+(:func:`prefill`, :func:`decode` over an :class:`LMCache`), the paged
+serving path (:func:`paged_prefill`, :func:`paged_decode` over a
+:class:`PagedState`) and, for the SSM family, :func:`forward_train`
+(counterpart of ``repro/models/lm.py``).
 
 Parameters live in :class:`DenseLM`, an ``nn.Module`` built either from a
 ``torch.Generator`` (:func:`init_lm`) or from the JAX package's parameter
@@ -28,6 +29,7 @@ from torch import nn
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import mm, rmsnorm
 
 
@@ -64,6 +66,15 @@ class Block(nn.Module):
         self.ln1, self.ln2 = _frozen(ln1), _frozen(ln2)
 
 
+class MambaBlock(nn.Module):
+    """[mamba] with its parametric pre-norm (the ssm family)."""
+
+    def __init__(self, mixer: SSM.Mamba, ln1=None):
+        super().__init__()
+        self.mixer = mixer
+        self.ln1 = _frozen(ln1)
+
+
 class DenseLM(nn.Module):
     def __init__(self, embed, blocks, final_norm=None, unembed=None):
         super().__init__()
@@ -78,10 +89,10 @@ class DenseLM(nn.Module):
 # --------------------------------------------------------------------------
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.shared_attn_every:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.shared_attn_every:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense and moe only)")
+            "(dense, moe and ssm only)")
     if cfg.head_pad_multiple:
         raise NotImplementedError(f"{cfg.name}: head padding (a sharding "
                                   "aid) is not ported")
@@ -104,12 +115,17 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     d, H, Hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim_, cfg.d_ff)
     s = 1.0 / math.sqrt(d)
-    so = 1.0 / math.sqrt(H * hd) / math.sqrt(2.0 * cfg.n_layers)
-    sd = 1.0 / math.sqrt(ff) / math.sqrt(2.0 * cfg.n_layers)
+    # the ssm family has no attention or MLP (H = ff = 0): no such scales
+    so = 1.0 / math.sqrt(H * hd or 1) / math.sqrt(2.0 * cfg.n_layers)
+    sd = 1.0 / math.sqrt(ff or 1) / math.sqrt(2.0 * cfg.n_layers)
     norm = (lambda: torch.ones(d, dtype=pdt, device=device)) \
         if cfg.parametric_norm else (lambda: None)
     blocks = []
     for _ in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            blocks.append(MambaBlock(SSM.init_mamba(cfg, ninit, generator,
+                                                    device), norm()))
+            continue
         attn = Attention(ninit((d, H * hd), s), ninit((d, Hkv * hd), s),
                          ninit((d, Hkv * hd), s), ninit((H * hd, d), so))
         if cfg.family == "moe":
@@ -132,7 +148,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     Matmul weights, expert weights and the embedding are cast to
     ``dtype`` (default: the compute dtype) once, here, as ``_expert_ffn``
     casts the experts at use in the reference; norm weights keep their
-    dtype and the MoE router stays f32."""
+    dtype and the MoE router stays f32.  A mamba mixer's ``conv_w``,
+    ``conv_b`` and ``norm_w`` keep the parameter dtype and its
+    ``A_log``, ``D``, ``dt_bias`` stay f32 (``ssm.MATMUL``, ``ssm.F32``)."""
     _check_family(cfg)
     dtype = dtype or cfg.compute_dtype
 
@@ -148,6 +166,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     b = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
+        ln1 = b["ln1"][i] if b.get("ln1") is not None else None
+        if cfg.family == "ssm":
+            mx = b["mixer"]
+            mixer = SSM.Mamba(**{
+                k: t(mx[k][i], dtype if k in SSM.MATMUL else torch.float32
+                     if k in SSM.F32 else cfg.param_torch_dtype)
+                for k in SSM.PARAMS})
+            blocks.append(MambaBlock(mixer, norm(ln1)))
+            continue
         at = b["attn"]
         attn = Attention(*(t(at[k][i]) for k in ("wq", "wk", "wv", "wo")))
         mlp = moe = None
@@ -158,7 +185,6 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         else:
             ml = b["mlp"]
             mlp = MLP(*(t(ml[k][i]) for k in ("wg", "wu", "wd")))
-        ln1 = b["ln1"][i] if b.get("ln1") is not None else None
         ln2 = b["ln2"][i] if b.get("ln2") is not None else None
         blocks.append(Block(attn, mlp, norm(ln1), norm(ln2), moe))
     return DenseLM(t(tree["embed"]), blocks, norm(tree.get("final_norm")),
@@ -213,24 +239,62 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
     return x + y, kv_out
 
 
+def _apply_mamba_block(blk: MambaBlock, x, be: Policy, cfg: ModelConfig, *,
+                       state=None):
+    """pre-norm + mamba; with ``state`` (one-token decode) also returns the
+    new (conv, ssm) carry."""
+    h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+    if state is not None:
+        y, new_state = SSM.mamba(blk.mixer, h, be, cfg, state=state)
+        return x + y, new_state
+    return x + SSM.mamba(blk.mixer, h, be, cfg), None
+
+
 # --------------------------------------------------------------------------
-# Wave serving: prefill / decode over a ring KV cache.
+# Forward over whole sequences (scoring; the ssm family).
+# --------------------------------------------------------------------------
+
+def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens):
+    """tokens (B, S) -> (logits (B, S, Vp), aux loss (a f32 scalar, 0 for
+    the ssm family)).  Under every policy but the forced library each
+    mamba layer runs the SSD kernel once over the whole sequence.  The
+    dense and MoE families' forward belongs to the training slice, which
+    is not ported yet."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: forward_train of the {cfg.family} family comes "
+            "with the training slice, not ported yet")
+    x = _embed_tokens(params, cfg, tokens)
+    for blk in params.blocks:
+        x, _ = _apply_mamba_block(blk, x, be, cfg)
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return _unembed(params, cfg, x, be), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# Wave serving: prefill / decode over a ring KV cache (the ssm family: a
+# per-sequence recurrent carry).
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class LMCache:
-    """KV cache of the wave path.  ``pos`` is the next position, a host
+    """Cache of the wave path.  ``pos`` is the next position, a host
     integer (the reference keeps a device scalar: a host int costs no
-    device read per step).  The buffers are updated in place by
-    :func:`decode`."""
+    device read per step).  Attention families keep K/V buffers, the ssm
+    family its recurrent carries; :func:`decode` updates them in place."""
     pos: int
-    attn_k: torch.Tensor                 # (L, B, Hkv, W, hd)
-    attn_v: torch.Tensor
+    attn_k: Optional[torch.Tensor] = None     # (L, B, Hkv, W, hd)
+    attn_v: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None       # (L, B, K-1, ch)
+    ssm: Optional[torch.Tensor] = None        # (L, B, nh, P, N) f32
 
 
 def cache_buffer_len(cfg: ModelConfig, seq_len: int) -> int:
     """Ring-buffer length: window-sized iff NO layer needs full context."""
     a = cfg.attn
+    if cfg.family == "ssm":
+        return 0
     if a.kind == "swa" and not cfg.shared_attn_every:
         return min(a.window, seq_len)
     return seq_len
@@ -239,9 +303,15 @@ def cache_buffer_len(cfg: ModelConfig, seq_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, prefill_len: int = 0,
                device="cuda") -> LMCache:
-    """Zero KV cache for ``batch`` sequences of up to ``seq_len``
-    positions, ``prefill_len`` of them already filled."""
+    """Zero cache for ``batch`` sequences of up to ``seq_len`` positions,
+    ``prefill_len`` of them already filled."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        conv, h = SSM.init_paged_state(cfg, batch, dtype, device)
+        L_ = cfg.n_layers
+        return LMCache(prefill_len,
+                       conv=conv[None].repeat(L_, 1, 1, 1),
+                       ssm=h[None].repeat(L_, 1, 1, 1, 1))
     shape = (cfg.n_layers, batch, cfg.n_kv_heads_padded,
              cache_buffer_len(cfg, seq_len), cfg.head_dim_)
     return LMCache(prefill_len,
@@ -277,6 +347,18 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     cache_len = cache_len or S
     cache = init_cache(cfg, B, cache_len, cfg.compute_dtype, prefill_len=S,
                        device=x.device)
+    if cfg.family == "ssm":
+        # the prompt as ONE chunk of the serving recurrence from a zero
+        # carry: the carry it leaves is bit-identical to any other
+        # chunking of the same tokens (the paged engine's)
+        zero = SSM.init_paged_state(cfg, B, cfg.compute_dtype, x.device)
+        for i, blk in enumerate(params.blocks):
+            h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+            y, (cache.conv[i], cache.ssm[i]) = SSM.paged_step(
+                blk.mixer, h, be, cfg, zero)
+            x = x + y
+        x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
+        return _unembed(params, cfg, x, be)[:, 0], cache
     W = cache.attn_k.shape[3]
     for i, blk in enumerate(params.blocks):
         x, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
@@ -288,10 +370,15 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
 
 def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
            cache: LMCache):
-    """One-token step, tokens (B, 1): writes each layer's K/V into the
-    cache in place; returns (logits (B, Vp), the cache at pos + 1)."""
+    """One-token step, tokens (B, 1): writes each layer's K/V (or carry)
+    into the cache in place; returns (logits (B, Vp), the cache at
+    pos + 1)."""
     x = _embed_tokens(params, cfg, tokens)
     for i, blk in enumerate(params.blocks):
+        if cfg.family == "ssm":
+            x, (cache.conv[i], cache.ssm[i]) = _apply_mamba_block(
+                blk, x, be, cfg, state=(cache.conv[i], cache.ssm[i]))
+            continue
         x, _ = _apply_attn_block(blk, x, be, cfg, i,
                                  kv=(cache.attn_k[i], cache.attn_v[i]),
                                  pos=cache.pos)
@@ -307,9 +394,14 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
 @dataclasses.dataclass
 class PagedState:
     """Device-side serving state: attention K/V block pools, indexed
-    through block tables (see ``repro_torch.serve.paged``)."""
-    attn_k: torch.Tensor                 # (L, P, Hkv, BS, hd)
-    attn_v: torch.Tensor
+    through block tables (see ``repro_torch.serve.paged``), and the ssm
+    family's recurrent carries in per-SLOT rows, fixed-size for the slot's
+    lifetime.  Which request owns which slot row is host-side state
+    (``serve.paged.SlotStateStore``)."""
+    attn_k: Optional[torch.Tensor] = None     # (L, P, Hkv, BS, hd)
+    attn_v: Optional[torch.Tensor] = None
+    conv: Optional[torch.Tensor] = None       # (L, slots, K-1, ch)
+    ssm: Optional[torch.Tensor] = None        # (L, slots, nh, Phd, N) f32
 
 
 def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -317,9 +409,15 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda") -> PagedState:
     """Zero serving state; block 0 of every pool is the null sink, and
     zero-init keeps it finite for the masked reads inactive slots discard.
-    (``slots`` sizes the per-slot recurrent rows of the ssm/hybrid
-    families, which are not ported; dense and MoE models keep none.)"""
+    ``slots`` sizes the ssm family's per-slot carry rows; they are
+    re-zeroed by :func:`paged_prefill` whenever a chunk starts at
+    position 0 (fresh admission or recompute-resume)."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        conv, h = SSM.init_paged_state(cfg, slots, dtype, device)
+        L_ = cfg.n_layers
+        return PagedState(conv=conv[None].repeat(L_, 1, 1, 1),
+                          ssm=h[None].repeat(L_, 1, 1, 1, 1))
     shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads_padded, block_size,
              cfg.head_dim_)
     return PagedState(torch.zeros(shape, dtype=dtype, device=device),
@@ -327,10 +425,22 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 
 def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
-                ps: PagedState, block_tables, qpos, decode_from=None):
+                ps: PagedState, block_tables, qpos, decode_from=None, *,
+                rows=slice(None), seg_len=None, active=None):
     """Layer stack shared by paged prefill chunks and slot decode; K/V go
     through ``block_tables`` into the pools (in place), each layer with
-    its own window.  Returns logits."""
+    its own window.  The ssm family's carries are the slot ``rows`` of
+    ``ps.conv``/``ps.ssm`` (aligned with x's batch), advanced in place.
+    Returns logits."""
+    if cfg.family == "ssm":
+        for i, blk in enumerate(params.blocks):
+            h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+            y, (ps.conv[i, rows], ps.ssm[i, rows]) = SSM.paged_step(
+                blk.mixer, h, be, cfg, (ps.conv[i, rows], ps.ssm[i, rows]),
+                seg_len=seg_len, active=active)
+            x = x + y
+        x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+        return _unembed(params, cfg, x, be)
     for i, blk in enumerate(params.blocks):
         x, _ = _apply_attn_block(blk, x, be, cfg, i, paged_kv=(
             ps.attn_k[i], ps.attn_v[i], block_tables, qpos, decode_from))
@@ -339,25 +449,43 @@ def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
 
 
 def paged_prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
-                  ps: PagedState, block_tables, pos_start, n_prompt):
-    """One prefill chunk for ONE request: tokens (1, C) at absolute
-    positions ``pos_start[0] + [0..C)``; block_tables (1, nmax).  Rows at
-    positions >= ``n_prompt`` exist only on recompute-resume and take the
-    decode numerics.  Returns logits (1, C, Vp); the pools in ``ps`` are
-    updated in place."""
+                  ps: PagedState, block_tables, pos_start, slot: int,
+                  seg_len: int, n_prompt: int):
+    """One prefill chunk for ONE request occupying ``slot``: tokens (1, C)
+    at absolute positions ``pos_start[0] + [0..C)`` (the tail past
+    ``seg_len`` is padding and advances no carry); block_tables
+    (1, nmax).  Rows at positions >= ``n_prompt`` exist only on
+    recompute-resume and take the decode numerics.  When ``pos_start`` is
+    0 (fresh admission or recompute-resume) the slot's carry rows are
+    zeroed first, on the device, in lockstep with the scheduler rewinding
+    the position.  Returns logits (1, C, Vp); ``ps`` is updated in
+    place."""
     x = _embed_tokens(params, cfg, tokens)
     B, C, _ = x.shape
     qpos = pos_start[:, None] + torch.arange(C, device=x.device)[None, :]
     dfrom = torch.full((B,), int(n_prompt), dtype=qpos.dtype,
                        device=x.device)
-    return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom)
+    if cfg.family != "ssm":
+        return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom)
+    rows = slice(slot, slot + 1)
+    fresh = pos_start[0] == 0
+    zero = torch.zeros((), device=x.device)
+    for pool in (ps.conv, ps.ssm):
+        pool[:, rows] = torch.where(fresh, zero.to(pool.dtype),
+                                    pool[:, rows])
+    seg = torch.full((B,), int(seg_len), dtype=torch.long, device=x.device)
+    return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom,
+                       rows=rows, seg_len=seg)
 
 
 def paged_decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
-                 ps: PagedState, block_tables, pos):
+                 ps: PagedState, block_tables, pos, active=None):
     """One slot-level decode step over ALL slots: tokens (slots, 1), pos
-    (slots,).  Inactive rows read/write the null block through their
-    all-zero table row.  Returns logits (slots, 1, Vp)."""
+    (slots,), active (slots,) bool (None: every slot).  Inactive rows
+    read/write the null block through their all-zero table row and keep
+    their recurrent carries bitwise unchanged.  Returns logits
+    (slots, 1, Vp)."""
     x = _embed_tokens(params, cfg, tokens)
     qpos = pos[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]
-    return _paged_core(params, cfg, be, x, ps, block_tables, qpos)
+    return _paged_core(params, cfg, be, x, ps, block_tables, qpos,
+                       active=active)

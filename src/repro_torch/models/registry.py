@@ -1,5 +1,6 @@
 """Model registry: one uniform interface over the ported families
-(counterpart of ``repro/models/registry.py``; dense and moe so far)."""
+(counterpart of ``repro/models/registry.py``; dense, moe and ssm so
+far)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,8 @@ from repro_torch.models import lm
 class Model:
     cfg: ModelConfig
     init: Callable                    # (generator, device) -> params
+    forward_train: Callable
+    # ^ (params, tokens, be) -> (logits, aux); the ssm family only so far
     prefill: Callable
     # ^ (params, tokens, be, cache_len=None) -> (logits, lm.LMCache)
     decode: Callable
@@ -20,9 +23,10 @@ class Model:
     init_cache: Callable
     # ^ (batch, seq_len, dtype, prefill_len, device) -> lm.LMCache
     paged_prefill: Callable
-    # ^ (params, tokens, ps, tables, pos0, n_prompt, be) -> logits
+    # ^ (params, tokens, ps, tables, pos0, slot, seg_len, n_prompt, be)
+    #   -> logits
     paged_decode: Callable
-    # ^ (params, tokens, ps, tables, pos, be) -> logits
+    # ^ (params, tokens, ps, tables, pos, active, be) -> logits
     init_paged_state: Callable
     # ^ (num_blocks, block_size, slots, dtype, device) -> lm.PagedState
 
@@ -32,6 +36,9 @@ def build(cfg: ModelConfig) -> Model:
 
     def init(generator, device="cuda"):
         return lm.init_lm(cfg, generator, device)
+
+    def fwd(params, tokens, be):
+        return lm.forward_train(params, cfg, be, tokens)
 
     def pf(params, tokens, be, cache_len=None):
         return lm.prefill(params, cfg, be, tokens, cache_len=cache_len)
@@ -44,15 +51,16 @@ def build(cfg: ModelConfig) -> Model:
                              seq_len if prefill_len is None else prefill_len,
                              device)
 
-    def ppf(params, tokens, ps, tables, pos0, n_prompt, be):
+    def ppf(params, tokens, ps, tables, pos0, slot, seg_len, n_prompt, be):
         return lm.paged_prefill(params, cfg, be, tokens, ps, tables, pos0,
-                                n_prompt)
+                                slot, seg_len, n_prompt)
 
-    def pdec(params, tokens, ps, tables, pos, be):
-        return lm.paged_decode(params, cfg, be, tokens, ps, tables, pos)
+    def pdec(params, tokens, ps, tables, pos, active, be):
+        return lm.paged_decode(params, cfg, be, tokens, ps, tables, pos,
+                               active)
 
     def mk_ps(num_blocks, block_size, slots, dtype, device="cuda"):
         return lm.init_paged_state(cfg, num_blocks, block_size, slots,
                                    dtype, device)
 
-    return Model(cfg, init, pf, dec, mk_cache, ppf, pdec, mk_ps)
+    return Model(cfg, init, fwd, pf, dec, mk_cache, ppf, pdec, mk_ps)

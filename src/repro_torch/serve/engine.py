@@ -11,13 +11,18 @@ ONE decode step over every decoding slot (sampling on the device, tokens
 drained asynchronously every ``drain_every`` steps by holding the device
 tensors in between), and run ONE prefill chunk for the oldest prefilling
 request.  Block exhaustion preempts the youngest sequence (recompute
-resume).  The step functions run eagerly: PyTorch has no ``jit`` to
+resume).  The ssm family's recurrent carries live in per-slot rows of the
+paged state: the prefill chunk names its slot and its real length (the
+rows re-zero when a chunk starts at position 0), the decode step masks
+the slots that are not decoding, and ``SlotStateStore`` records which
+request owns which row.  The step functions run eagerly: PyTorch has no ``jit`` to
 stage, and the pools are updated in place instead of donated.
 
 :class:`ContinuousBatcher` is the wave-based reference: a wave of up to
 ``slots`` requests shares one left-padded prefill (``lm.prefill``, whose
-attention runs the flash kernel) and decodes over a ring KV cache; slots
-refill only between waves.  ``slots=1`` is exact unbatched generation,
+attention runs the flash kernel; the ssm family's prompt runs the serving
+recurrence) and decodes over a ring KV cache (the ssm family: its carry);
+slots refill only between waves.  ``slots=1`` is exact unbatched generation,
 the oracle the paged engine is held against.  The reference's
 ``make_serve_fns`` only wraps the two model calls in ``jax.jit`` and has
 no counterpart: the engines call the model directly.
@@ -216,13 +221,15 @@ class PagedEngine:
     def _issue_decode(self, dec: List[sched.Seq]) -> None:
         bt = np.zeros((self.slots, self.cache.nmax), np.int64)
         pos = np.zeros((self.slots,), np.int64)
+        act = np.zeros((self.slots,), bool)
         for q in dec:
             bt[q.slot] = self.cache.row(q.rid)
             pos[q.slot] = q.pos
+            act[q.slot] = True
         with torch.no_grad():
             logits = self.model.paged_decode(
                 self.params, self._cur[:, None], self._ps, self._dev(bt),
-                self._dev(pos), self.be)
+                self._dev(pos), self._dev(act), self.be)
             self._cur = sample(logits[:, -1], self.gen, self.temperature)
         self._pending.append((self._cur, [(q, q.slot) for q in dec]))
         self._decode_steps += 1
@@ -247,8 +254,8 @@ class PagedEngine:
             logits = self.model.paged_prefill(
                 self.params, self._dev(toks), self._ps,
                 self._dev(self.cache.row(seq.rid)[None].astype(np.int64)),
-                self._dev(np.array([p0], np.int64)), len(seq.req.prompt),
-                self.be)
+                self._dev(np.array([p0], np.int64)), seq.slot, len(segment),
+                len(seq.req.prompt), self.be)
         seq.pos = p0 + len(segment)
         obs.counter("serve.prefill_chunks").inc()
         obs.TRACE.emit(

@@ -121,8 +121,8 @@ class BlockTable:
 class SlotStateStore:
     """Host-side ledger for the per-slot recurrent-state rows.
 
-    The device rows (conv carries + SSM state of the ssm/hybrid
-    families, which the port does not serve yet; dense models keep none)
+    The device rows (conv carries + SSM state of the ssm family,
+    ``lm.PagedState.conv``/``ssm``; dense and MoE models keep none)
     live with the engine's pools; this class owns WHICH request
     each row belongs to, in lockstep with block-table release: the
     scheduler calls :meth:`bind` on admission and :meth:`release` on

@@ -339,7 +339,7 @@ def _run_both(smoke, dtype):
         tl = lm.paged_prefill(
             tparams, cfg, KERNEL, torch.from_numpy(toks).long(), tps,
             torch.from_numpy(tables[slot:slot + 1]).long(),
-            torch.tensor([0]), n_prompt)
+            torch.tensor([0]), slot, n, n_prompt)
         out.append((tl[0, :n], np.asarray(jl, np.float32)[0, :n]))
     pos = np.array([11, 5], np.int32)
     for _ in range(2):

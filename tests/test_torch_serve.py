@@ -24,7 +24,7 @@ from repro.models.common import XLA
 from repro.serve import PagedEngine as JPagedEngine, Request as JRequest
 from repro_torch import api, configs, obs
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import lm, registry
+from repro_torch.models import lm, registry, ssm
 from repro_torch.serve import ContinuousBatcher, PagedEngine, Request
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -93,7 +93,7 @@ def _run_both(smoke, dtype):
         tl = lm.paged_prefill(
             tparams, cfg, KERNEL, torch.from_numpy(toks).long(), tps,
             torch.from_numpy(tables[slot:slot + 1]).long(),
-            torch.tensor([0]), n_prompt)
+            torch.tensor([0]), slot, n, n_prompt)
         out.append((tl[0, :n], np.asarray(jl, np.float32)[0, :n]))
     pos = np.array([11, 5], np.int32)
     for _ in range(2):
@@ -196,21 +196,24 @@ def test_entry_points_default_to_the_card(monkeypatch):
                     (lm.init_lm, "device"),
                     (lm.init_paged_state, "device"),
                     (lm.init_cache, "device"),
-                    (lm.params_from_numpy, "device")):
+                    (lm.params_from_numpy, "device"),
+                    (ssm.init_mamba, "device"),
+                    (ssm.init_paged_state, "device")):
         assert inspect.signature(fn).parameters[arg].default == "cuda", fn
-    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "olmo-1b",
-                                      "--smoke"])
-    if torch.cuda.is_available():
-        assert PagedEngine.__init__  # the card is there: nothing to refuse
-    else:
-        with pytest.raises(SystemExit):
-            serve_mod.main()
-        cfg = configs.get_smoke("olmo-1b")
-        # a CPU build of torch refuses CUDA with an AssertionError, a CUDA
-        # build without a card with a RuntimeError
-        with pytest.raises((RuntimeError, AssertionError)):
-            lm.init_paged_state(cfg, 4, 8, 2)
-    r = serve_mod.serve("olmo-1b", smoke=True, requests=2, max_new=3,
-                        device="cpu", backend="kernel")
-    assert r["tokens"] == 6
-    assert all(p.device.type == "cpu" for p in r["params"].parameters())
+    for arch in ("olmo-1b", "mamba2-780m"):
+        monkeypatch.setattr(sys, "argv", ["serve", "--arch", arch,
+                                          "--smoke"])
+        if torch.cuda.is_available():
+            assert PagedEngine.__init__  # the card is there: nothing to refuse
+        else:
+            with pytest.raises(SystemExit):
+                serve_mod.main()
+            cfg = configs.get_smoke(arch)
+            # a CPU build of torch refuses CUDA with an AssertionError, a
+            # CUDA build without a card with a RuntimeError
+            with pytest.raises((RuntimeError, AssertionError)):
+                lm.init_paged_state(cfg, 4, 8, 2)
+        r = serve_mod.serve(arch, smoke=True, requests=2, max_new=3,
+                            device="cpu", backend="kernel")
+        assert r["tokens"] == 6
+        assert all(p.device.type == "cpu" for p in r["params"].parameters())

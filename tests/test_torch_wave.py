@@ -284,7 +284,7 @@ def _paged_both(smoke, pattern):
                                 0, 13, 13)
     tl = lm.paged_prefill(tparams, cfg, KERNEL, torch.from_numpy(toks).long(),
                           tps, torch.from_numpy(table).long(),
-                          torch.tensor([0]), 13)
+                          torch.tensor([0]), 0, 13, 13)
     out = [(tl[0, :13], _np(jl)[0, :13])]
     for pos in range(13, 17):
         nxt = rng.randint(0, cfg.vocab, (1, 1)).astype(np.int32)
