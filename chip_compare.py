@@ -1,0 +1,143 @@
+"""Compare two checkouts of the port on one NVIDIA GPU, in turns.
+
+    python3 chip_compare.py OLD_ROOT NEW_ROOT [--out FILE]
+
+Each root is a checkout (its ``src/repro_torch`` is imported in a
+subprocess of its own, which builds that tree's kernels).  The runs go
+old, new, new, old, so that a drift of the card shows as a difference
+between the two runs of one tree.  Each run times, with CUDA events
+(loop time, host launch time included) and torch.profiler (device time
+of the kernel):
+
+* the flash kernel at the wave's prefill shape (B 4 x 16 heads x S 23 x
+  D 128, bf16, causal) and at B 1 x 16 x S 2048 x D 128;
+* one olmo-1b decode step's routed GEMMs at M = 4 under the forced
+  kernel (per layer q, k, v, o, gate, up, down on their own weights, then
+  the tied unembed: 113 ``api.matmul`` calls, 2.3 GB of weights).
+
+Prints one line per run and the card's name and power limit, and writes
+the runs to ``--out`` (default ``chiprun_out/chip_compare.json``).  Exits
+non-zero without CUDA or when a run fails.
+"""
+import argparse
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+RUN = r'''
+import json, math, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch import api
+from repro_torch.kernels import build, flash_attention as fa
+
+build.load()
+torch.backends.cuda.matmul.allow_tf32 = False
+g = torch.Generator(device="cuda").manual_seed(0)
+
+
+def loop_ms(fn, n, warm=3):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def device_ms(fn, n, match):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if match in e.key and str(e.device_type).endswith("CUDA"))
+    return us / 1e3 / n
+
+
+out = {}
+for B, H, S, D in ((4, 16, 23, 128), (1, 16, 2048, 128)):
+    q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    f = lambda: fa.flash_attention(q, k, v)
+    out[f"flash B{B} x {H} x S{S} x D{D}"] = {
+        "loop_ms": loop_ms(f, 50 if S < 1024 else 10),
+        "device_ms": device_ms(f, 10, "flash_attention")}
+kern = api.Policy(backend="kernel")
+d, ff, vocab = 2048, 8192, 50432
+
+
+def weight(k, n):
+    return (torch.randn((k, n), generator=g, device="cuda") /
+            math.sqrt(k)).to(torch.bfloat16)
+
+
+x = torch.randn((4, d), generator=g, device="cuda").to(torch.bfloat16)
+xf = torch.randn((4, ff), generator=g, device="cuda").to(torch.bfloat16)
+calls = []
+for _ in range(16):
+    calls += [(x, weight(d, d)) for _ in range(4)]
+    calls += [(x, weight(d, ff)) for _ in range(2)] + [(xf, weight(ff, d))]
+calls.append((x, weight(vocab, d).T))
+
+
+def step():
+    for a, b in calls:
+        api.matmul(a, b, policy=kern)
+
+
+out["olmo-1b decode step GEMMs, M 4"] = {
+    "loop_ms": loop_ms(step, 3, 1),
+    "device_ms": device_ms(step, 1, "iaat_gemm_kernel")}
+print("RESULT " + json.dumps(out))
+'''
+
+
+def run_tree(root):
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", RUN], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=1200)
+    line = [ln for ln in res.stdout.splitlines() if ln.startswith("RESULT ")]
+    if res.returncode or not line:
+        raise RuntimeError(f"run in {root} failed:\n{res.stdout[-3000:]}\n"
+                           f"{res.stderr[-3000:]}")
+    return json.loads(line[0][len("RESULT "):])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("old", type=pathlib.Path)
+    ap.add_argument("new", type=pathlib.Path)
+    ap.add_argument("--out", type=pathlib.Path,
+                    default=pathlib.Path("chiprun_out/chip_compare.json"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    runs = []
+    for name in ("old", "new", "new", "old"):
+        root = getattr(args, name).resolve()
+        r = run_tree(root)
+        runs.append({"tree": name, "root": str(root), **r})
+        print(name, json.dumps(r), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,14 +8,19 @@ fails the run:
 
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
 2. build  — compiles every instance of the kernel table, for the IAAT
-            GEMM and the two grouped kernels (S/D/H), the complex
-            Karatsuba kernel (C/Z), and the flash attention instances
-            (ptxas must report all);
+            GEMM (three load paths) and the two grouped kernels (S/D/H),
+            the complex Karatsuba kernel (C/Z), and the flash attention
+            instances (ptxas must report all; cuobjdump's SASS of the
+            tensor-core flash instances must hold HGMMA);
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
-            and GEMMs of mixed operand dtypes (a bf16 or f64 C of an S
-            GEMM, an f32 C of an H GEMM, real x complex) against f64;
+            GEMMs of mixed operand dtypes (a bf16 or f64 C of an S GEMM,
+            an f32 C of an H GEMM, real x complex) against f64; split-K
+            regions (K tails, beta with C, B read along N and along K,
+            unaligned and strided views on the scalar path), each case's
+            load path and split asserted from the per-path launch counts,
+            and that olmo-1b's decode shapes split K on the cp.async ring;
 4. serve  — olmo-1b at full width and full depth (16 layers, bf16, random
             weights from a seeded torch.Generator) serves 6 requests
             through PagedEngine (after an uncounted one-request warm-up),
@@ -41,9 +46,12 @@ fails the run:
             arithmetic, logits compared, and the share of (token, layer)
             expert choices the two runs agree on;
 9. kernels — times at the main-path shapes (olmo's 2-D GEMMs, moonshot's
-            grouped ones), printed as the ``kernels`` JSON line;
-10. flash check — the CUDA flash attention kernel against its plain
-            version, f32 and bf16: B in {1, 3}, (Hq, Hkv) in {(16, 16),
+            grouped ones), printed as the ``kernels`` JSON line; for one
+            olmo-1b decode step's GEMMs also the step's loop time, its
+            torch.profiler device time and a CUDA-graph replay;
+10. flash check — the CUDA flash attention kernels (bf16 at D 64/128/256
+            on the tensor cores, the rest on the CUDA cores; both must
+            launch) against their plain version, f32 and bf16: B in {1, 3}, (Hq, Hkv) in {(16, 16),
             (8, 2), (4, 1)}, D in {64, 128, 256}, Sq = Sk in {1, 23, 80,
             300}, causal on and off, window in {None, 24, 512}; every head
             dim instance; a decode-like query (Sq 1, Sk 64, q_offset 63),
@@ -57,8 +65,9 @@ fails the run:
             the plain arithmetic, logits compared; and the share of tokens
             ContinuousBatcher(slots=1) and PagedEngine agree on (bf16: a
             share, not a gate);
-13. flash kernels — flash kernel / plain / SDPA times and the bound at
-            the wave's prefill shape and at B 1 x 16 heads x S 2048 x D 128;
+13. flash kernels — flash kernel / plain / SDPA times (loop and device)
+            and the bound at the wave's prefill shape, at B 1 x 16 heads x
+            S 2048 x D 128 and at B 1 x 8 heads x S 2048 x D 256;
 14. grid check — the paper's grid (configs/paper_gemm.py: S/D/C/Z x
             NN/NT/TN/TT, M = N = K = 2..80, to 32 for TN), ragged
             non-cubes, .T and sliced views, alpha (complex for C/Z) with
@@ -163,42 +172,53 @@ def phase_build():
                                 ptx))
            for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
                         "ragged_gemm_kernel", "cx_gemm_kernel",
-                        "flash_attention_kernel", "ssd_scan_kernel")}
+                        "flash_attention_kernel", "flash_attention_tc_kernel",
+                        "ssd_scan_kernel")}
     real = sum(1 for i in kernelgen.instances()
                if i[0] in kernelgen.KERNEL_LETTERS)
     cx = n - real
-    log(f"build: {real} real instances x {len(build.SOURCES)} sources + "
+    log(f"build: {real} real instances x ({len(build.IAAT_PATHS)} IAAT "
+        f"paths + {len(build.SOURCES) - 1} grouped source) + "
         f"{cx} complex x {len(build.SOURCES_CX)} + "
         f"{len(build.SOURCES_ONCE)} once in "
         f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels "
         f"{json.dumps(per)}, max {max(regs)} registers, {spills} bytes "
         f"spill stores -> {lib}")
-    # the flash instances: (dtype, head dim) from the mangled name
+    # the flash instances: (kernel, dtype, head dim) from the mangled name
     flash = []
     for entry in ptx.split("Compiling entry function")[1:]:
-        m = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", entry)
-        if m:
+        # the entry's own name (a warning line may name another kernel)
+        name = entry.split("'")[1]
+        m = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", name)
+        mt = re.search(r"flash_attention_tc_kernelILi(\d+)E", name)
+        if m or mt:
             flash.append({
-                "dtype": "bf16" if "bfloat16" in m.group(1) else "f32",
-                "D": int(m.group(2)),
+                "kernel": "tc" if mt else "cuda_core",
+                "dtype": "bf16" if mt or "bfloat16" in m.group(1) else "f32",
+                "D": int((mt or m).group(1 if mt else 2)),
                 "registers": int(re.search(r"Used (\d+) registers",
                                            entry).group(1)),
                 "spill_stores": int(re.search(
                     r"(\d+) bytes spill stores", entry).group(1))})
-    flash.sort(key=lambda f: (f["dtype"], f["D"]))
+    flash.sort(key=lambda f: (f["kernel"], f["dtype"], f["D"]))
     log("build: flash_attention instances (registers, spill bytes): "
-        + ", ".join(f"{f['dtype']} D{f['D']} {f['registers']}/"
-                    f"{f['spill_stores']}" for f in flash))
-    want_flash = 2 * len(flash_attention.HEAD_DIMS)
+        + ", ".join(f"{f['kernel']} {f['dtype']} D{f['D']} "
+                    f"{f['registers']}/{f['spill_stores']}" for f in flash))
+    # f32 at every head dim and bf16 under the tensor-core dims on the
+    # CUDA cores; bf16 at the tensor-core dims on wgmma
+    n_tc = len(flash_attention.TC_HEAD_DIMS)
+    want_flash = 2 * len(flash_attention.HEAD_DIMS) - n_tc
     want_ssd = 2 * len(ssd.CHUNKS)
-    want = {"iaat_gemm_kernel": real, "batched_gemm_kernel": real,
+    want = {"iaat_gemm_kernel": 3 * real, "batched_gemm_kernel": real,
             "ragged_gemm_kernel": real, "cx_gemm_kernel": cx,
             "flash_attention_kernel": want_flash,
+            "flash_attention_tc_kernel": n_tc,
             "ssd_scan_kernel": want_ssd}
-    if len(regs) != 3 * real + cx + want_flash + want_ssd or \
-            len(flash) != want_flash or per != want:
+    if len(regs) != sum(want.values()) or \
+            len(flash) != want_flash + n_tc or per != want:
         raise RuntimeError("ptxas reported another kernel count than the "
                            f"table's {want}: {per}")
+    hgmma, hgmma_line = flash_sass(lib.parent / "flash_attention.o", n_tc)
     # the complex instances: registers and spills, from the ptxas report
     cxr = [(int(re.search(r"Used (\d+) registers", e).group(1)),
             int(re.search(r"(\d+) bytes spill stores", e).group(1)))
@@ -214,7 +234,34 @@ def phase_build():
     log(f"build: ssd_scan instances use {min(r for r, _ in ssdr)}.."
         f"{max(r for r, _ in ssdr)} registers, "
         f"{sum(sp for _, sp in ssdr)} bytes of spill stores in all")
-    return flash
+    return {"flash_instances": flash, "hgmma": hgmma,
+            "hgmma_line": hgmma_line}
+
+
+def flash_sass(obj, n_tc):
+    """``cuobjdump -sass`` of the flash object: every tensor-core instance
+    must hold HGMMA instructions (Hopper's wgmma) and the CUDA-core ones
+    none; the count per function and one HGMMA line are logged."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(obj)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    (OUT_DIR / "flash_sass.txt").write_text(sass)
+    counts, line = {}, None
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        hg = [ln for ln in fn.splitlines() if "HGMMA" in ln]
+        counts[name] = len(hg)
+        if hg and line is None:
+            line = re.sub(r"\s+", " ", hg[0]).strip()
+    tc = {k: v for k, v in counts.items() if "flash_attention_tc_kernel" in k}
+    other = {k: v for k, v in counts.items() if k not in tc}
+    log(f"build: cuobjdump -sass flash_attention.o: HGMMA per function "
+        f"{json.dumps(counts)}; e.g. {line}")
+    if len(tc) != n_tc or not all(tc.values()) or any(other.values()):
+        raise AssertionError(f"flash SASS: HGMMA counts {counts}")
+    return counts, line
 
 
 def _rel_err(got, want):
@@ -288,21 +335,106 @@ def phase_check(torch):
                                  f"err {rel} (tol {tol})")
         log(f"check mixed dtypes {what}: {out.dtype}, rel err {rel:.3g} "
             f"(tol {tol})")
+    split_check(torch, g)
     main = {}
     for M in (4, 32):
         for (K, N, tied) in MAIN_SHAPES:
             x, (w,) = _main_operands(torch, g, M, K, N, tied)
+            _reset_counts()
             out = api.matmul(x, w, policy=kern)
             want = iaat_gemm.gemm_region_plain(
                 kernelgen.kernel_table("H", "NN")[0], x, w)
             torch.cuda.synchronize()
+            n = _counts()
             ab, rel = _rel_err(out, want)
             main[(M, K, N, tied)] = ab
+            slices = [r.slices for r in _plan_of(M, N, K).regions]
             log(f"check main path H M={M} K={K} N={N} tied={tied}: max abs "
-                f"err {ab:.4g}, rel {rel:.3g} (tol {TOL['H']})")
+                f"err {ab:.4g}, rel {rel:.3g} (tol {TOL['H']}); K slices "
+                f"{slices}, launches ring {n['iaat_ring']} scalar "
+                f"{n['iaat_scalar']} split {n['iaat_split']}")
             if not rel <= TOL["H"]:
                 raise AssertionError(f"main-path shape {M}x{N}x{K}: {rel}")
+            # every main-path GEMM loads through the ring; a grid that
+            # underfills the card splits K
+            if n["iaat_scalar"] or n["iaat_ring"] != len(slices) or \
+                    n["iaat_split"] != sum(sl > 1 for sl in slices):
+                raise AssertionError(f"main-path shape {M}x{N}x{K}: paths "
+                                     f"{n}, K slices {slices}")
+            if M == 4 and not tied and not n["iaat_split"]:
+                raise AssertionError(f"decode shape K={K} N={N} did not "
+                                     "split K")
     return max(main.values())
+
+
+def _plan_of(M, N, K):
+    """The plan api.matmul runs (NN flags; a tied weight is a .T view)."""
+    from repro_torch.core import plan
+    return plan.build_plan(M, N, K, "H", "NN")
+
+
+def split_check(torch, g):
+    """Split-K regions against the plain version: K not a multiple of
+    slices x bk, beta != 0 with a c, the ring with B read along N and
+    along K (a tied .T view), S/D/H, and strided or unaligned views that
+    take the scalar path; each case's path and split are asserted from
+    the per-path launch counts."""
+    from repro_torch import api
+    from repro_torch.core import kernelgen, plan
+    from repro_torch.kernels import iaat_gemm
+    kern = api.Policy(backend="kernel")
+    dt = {"S": torch.float32, "D": torch.float64, "H": torch.bfloat16}
+
+    def rnd(*shape, letter):
+        return torch.randn(shape, generator=g, device="cuda").to(dt[letter])
+
+    cases = []   # (what, letter, a, b, c, alpha, beta, trans_b, path)
+    for letter in ("H", "S", "D"):
+        K = 2085        # 33 steps of 64: not a multiple of slices x bk
+        a = rnd(4, 2112, letter=letter)[:, :K]          # aligned rows
+        b = rnd(K, 2048, letter=letter)
+        c = rnd(4, 2048, letter=letter)
+        cases.append((f"{letter} NN ring, K tail", letter, a, b, None, 1.0,
+                      0.0, False, "ring"))
+        cases.append((f"{letter} NN ring, beta c", letter, a, b, c, -0.75,
+                      2.5, False, "ring"))
+        e = rnd(1000, 2112, letter=letter)[:, :K]      # tied: embed (N, K)
+        cases.append((f"{letter} NT ring along K (.T view)", letter, a, e,
+                      None, 1.0, 0.0, True, "ring"))
+        # unaligned: K of odd length rows; strided: every other column
+        cases.append((f"{letter} NN scalar, unaligned rows", letter,
+                      rnd(4, K, letter=letter), rnd(K, 1000, letter=letter),
+                      rnd(4, 1000, letter=letter), 1.5, -0.5, False,
+                      "scalar"))
+        cases.append((f"{letter} NN scalar, strided views", letter,
+                      rnd(4, 2 * K, letter=letter)[:, ::2],
+                      rnd(K, 4096, letter=letter)[:, 1::2], None, 1.0, 0.0,
+                      False, "scalar"))
+    worst = {}
+    for what, letter, a, b, c, alpha, beta, tb, path in cases:
+        M, K = a.shape
+        N = b.shape[0] if tb else b.shape[1]
+        trans = "NT" if tb else "NN"
+        slices = [r.slices for r in plan.build_plan(M, N, K, letter,
+                                                    trans).regions]
+        _reset_counts()
+        out = api.gemm(a, b, c, alpha, beta, False, tb, policy=kern)
+        want = iaat_gemm.gemm_region_plain(
+            kernelgen.kernel_table(letter, trans)[0], a, b, c, alpha, beta)
+        torch.cuda.synchronize()
+        n = _counts()
+        _, rel = _rel_err(out, want)
+        worst[what] = rel
+        if not rel <= TOL[letter]:
+            raise AssertionError(f"split {what}: rel err {rel} > "
+                                 f"{TOL[letter]}")
+        if max(slices) < 2 or n[f"iaat_{path}"] != len(slices) or \
+                n["iaat_split"] != sum(sl > 1 for sl in slices):
+            raise AssertionError(f"split {what}: K slices {slices}, "
+                                 f"launches {n}")
+    log("check split K (ring and scalar paths): worst rel err "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+    return worst
 
 
 #: (K, N, tied) of olmo-1b's routed GEMMs: q/k/v/o, gate/up, down, and the
@@ -348,7 +480,14 @@ def _counts():
             "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
             "ragged_gemm": grouped_gemm.launch_count("ragged_gemm"),
             "flash_attention": flash_attention.launch_count(),
-            "ssd_scan": ssd.launch_count()}
+            "ssd_scan": ssd.launch_count(),
+            # per kernel or path within the two redesigned wrappers
+            "iaat_ring": iaat_gemm.path_count("ring"),
+            "iaat_scalar": iaat_gemm.path_count("scalar"),
+            "iaat_split": iaat_gemm.path_count("split"),
+            "flash_tc": flash_attention.launch_count("flash_attention_tc"),
+            "flash_cuda_core": flash_attention.launch_count(
+                "flash_attention")}
 
 
 def phase_serve(torch, arch, cfg, requests, max_new, kernels):
@@ -382,6 +521,12 @@ def phase_serve(torch, arch, cfg, requests, max_new, kernels):
         for k in kernels:
             if launches[k] <= 0:
                 raise AssertionError(f"{arch} {backend}: {k} never ran")
+        # a served model's activations and weights are 16-byte aligned:
+        # every IAAT launch loads through the cp.async ring
+        if launches["iaat_scalar"] or \
+                launches["iaat_ring"] != launches["iaat_gemm"]:
+            raise AssertionError(f"{arch} {backend}: IAAT launches off the "
+                                 f"ring path: {launches}")
         per_tok = {k: launches[k] / r["tokens"] for k in kernels}
         runs[backend] = {"tokens": r["tokens"], "seconds": r["seconds"],
                          "tok_s": r["tok_s"],
@@ -525,6 +670,34 @@ def _time_ms(torch, fn, n_rep, warm=3):
     return e0.elapsed_time(e1) / n_rep
 
 
+def _device_ms(torch, fn, reps, match=None):
+    """Device time per call of ``fn`` from a torch.profiler trace of
+    ``reps`` calls: the time of the trace's device kernels (those whose
+    name holds ``match``, when given), summed, over ``reps``, and the
+    count of such kernel launches; (None, 0) if the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or (
+                match is not None and match not in e.key):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            us += t
+            n += e.count
+    return (us / 1e3 / reps if n else None), n
+
+
 def phase_kernels(torch, cfg, launches, max_abs_err):
     """Kernel / plain / library times and the bound at every main-path
     shape, each weight cycled through enough copies (> 2 x the 50 MB L2)
@@ -550,14 +723,20 @@ def phase_kernels(torch, cfg, launches, max_abs_err):
             t_p = _time_ms(torch, lambda i: iaat_gemm.gemm_region_plain(
                 sig, x, ws[i % n]), reps)
             t_l = _time_ms(torch, lambda i: torch.matmul(x, ws[i % n]), reps)
+            d_k, _ = _device_ms(torch, lambda i: api.matmul(
+                x, ws[i % n], policy=kern), reps, "iaat_gemm_kernel")
+            d_l, _ = _device_ms(torch, lambda i: torch.matmul(x, ws[i % n]),
+                                reps)
             bound = cost.gemm_roofline(M, N, K, "H")
             rows.append({"M": M, "K": K, "N": N, "tied": tied,
                          "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                         "device_ms": d_k, "library_device_ms": d_l,
                          "bound_ms": bound.seconds * 1e3,
                          "bound_by": bound.bound})
             log(f"kernel time H M={M} K={K} N={N} tied={tied}: kernel "
-                f"{t_k:.4f} ms, plain {t_p:.4f} ms, library {t_l:.4f} ms, "
-                f"bound {bound.seconds * 1e3:.4f} ms ({bound.bound})")
+                f"{t_k:.4f} ms (device {d_k} ms), plain {t_p:.4f} ms, "
+                f"library {t_l:.4f} ms (device {d_l} ms), bound "
+                f"{bound.seconds * 1e3:.4f} ms ({bound.bound})")
     # one decode step at M=4: per layer q,k,v,o (2048x2048), gate, up
     # (2048x8192), down (8192x2048); then the tied unembed
     per_layer = {(cfg.d_model, cfg.d_model, False): 4,
@@ -576,6 +755,14 @@ def phase_kernels(torch, cfg, launches, max_abs_err):
             flops += cnt * b.flops
             nbytes += cnt * b.hbm_bytes
     bound_s = max(flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW)
+    dev = _decode_step_device(torch, cfg, g)
+    log(f"kernel time H one olmo-1b decode step (M=4, {dev['calls']} "
+        f"api.matmul calls, distinct weights): summed per-shape loops "
+        f"{step['ms']:.4f} ms; one step's loop {dev['loop_ms']:.4f} ms; "
+        f"device time (torch.profiler, the step's kernels) "
+        f"{dev['device_ms']} ms ({dev['kernels']} kernels); CUDA-graph "
+        f"replay {dev['graph_ms']} ms; bound {bound_s * 1e3:.4f} ms; plain "
+        f"{step['plain_ms']:.4f} ms, library {step['library_ms']:.4f} ms")
     entry = {
         "name": "iaat_gemm",
         "route": "cuda",
@@ -589,9 +776,62 @@ def phase_kernels(torch, cfg, launches, max_abs_err):
         "bound_by": "bytes" if nbytes / cost.HBM_BW >= flops /
         cost.PEAK_FLOPS_BF16 else "operations",
         "library_ms": step["library_ms"],
-        "at": "one olmo-1b decode step's routed GEMMs, M=4, bf16, summed",
+        "device_ms": dev["device_ms"],
+        "step_loop_ms": dev["loop_ms"],
+        "graph_ms": dev["graph_ms"],
+        "at": "one olmo-1b decode step's routed GEMMs, M=4, bf16, summed; "
+              "device_ms: the profiler's device time of one such step",
     }
     return entry, rows
+
+
+def _decode_step_device(torch, cfg, g):
+    """One olmo-1b decode step's routed GEMMs at M = 4 (per layer q, k, v,
+    o, gate, up, down, then the tied unembed), each on its own weight,
+    2.3 GB in all, so every weight comes from HBM as in serving.  Returns
+    the loop time of the step (CUDA events around the api.matmul calls,
+    host launch time included), the device time of its kernels from a
+    torch.profiler trace of one step (None if the trace holds no device
+    time), and the replay time of the step captured as a CUDA graph (None
+    if capture fails; the failure is logged)."""
+    from repro_torch import api
+    kern = api.Policy(backend="kernel")
+    d, f, bf = cfg.d_model, cfg.d_ff, torch.bfloat16
+
+    def weight(k, n):
+        return (torch.randn((k, n), generator=g, device="cuda") /
+                math.sqrt(k)).to(bf)
+    x = torch.randn((4, d), generator=g, device="cuda").to(bf)
+    xf = torch.randn((4, f), generator=g, device="cuda").to(bf)
+    calls = []
+    for _ in range(cfg.n_layers):
+        calls += [(x, weight(d, d)) for _ in range(4)]
+        calls += [(x, weight(d, f)) for _ in range(2)]
+        calls.append((xf, weight(f, d)))
+    calls.append((x, weight(cfg.vocab_padded, d).T))
+
+    def step():
+        for xi, w in calls:
+            api.matmul(xi, w, policy=kern)
+    loop_ms = _time_ms(torch, lambda i: step(), 5, warm=2)
+    dev_ms, kernels = _device_ms(torch, lambda i: step(), 1,
+                                 "iaat_gemm_kernel")
+    graph_ms = None
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph_ms = _time_ms(torch, lambda i: graph.replay(), 10, warm=2)
+    except Exception as e:     # a measurement, not a check: say why
+        log(f"kernel time: CUDA-graph capture of the decode step failed: "
+            f"{type(e).__name__}: {e}")
+    return {"calls": len(calls), "loop_ms": loop_ms, "device_ms": dev_ms,
+            "kernels": kernels, "graph_ms": graph_ms}
 
 
 def _grouped_decode_shapes(mcfg):
@@ -907,11 +1147,18 @@ def phase_flash_check(torch):
             raise AssertionError("flash: a query with no valid key gave a "
                                  "non-zero row")
         cases += 8
-    launches = _counts()["flash_attention"]
-    log(f"check flash: {cases} cases, {launches} launches; worst max abs "
+    n = _counts()
+    launches = n["flash_attention"]
+    log(f"check flash: {cases} cases, {launches} launches ({n['flash_tc']} "
+        f"tensor-core, {n['flash_cuda_core']} CUDA-core); worst max abs "
         f"err (f32 allclose {FLASH_TOL_F32}, bf16 one step): "
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
-    return {"cases": cases, "launches": launches, "worst_max_abs": worst}
+    if launches != cases or not n["flash_tc"] or not n["flash_cuda_core"]:
+        raise AssertionError(f"flash check: launches {n} for {cases} cases")
+    return {"cases": cases, "launches": launches,
+            "launches_tc": n["flash_tc"],
+            "launches_cuda_core": n["flash_cuda_core"],
+            "worst_max_abs": worst}
 
 
 def _wave_model(cfg, phases):
@@ -984,6 +1231,10 @@ def phase_wave_serve(torch, cfg, params, requests=6, max_new=16):
         for k in ("flash_attention", "iaat_gemm"):
             if launches[k] <= 0:
                 raise AssertionError(f"wave {backend}: {k} never ran")
+        if launches["flash_tc"] != launches["flash_attention"]:
+            raise AssertionError(f"wave {backend}: bf16 D "
+                                 f"{cfg.head_dim_} attention off the "
+                                 f"tensor-core kernel: {launches}")
         tokens = sum(len(v) for v in done.values())
         out = {"tokens": tokens, "seconds": dt, "tok_s": tokens / dt,
                "launch_counts": launches,
@@ -1083,9 +1334,12 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
     from repro_torch.kernels import flash_attention as fa
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(9)
-    H, D = cfg.n_heads, cfg.head_dim_
     rows = []
-    for B, S in (serve_shape, (1, 2048)):
+    # the wave's prefill, S 2048 at olmo's 16 x 128, and S 2048 at head
+    # dim 256 with the same width (8 heads)
+    for B, S, H, D in ((*serve_shape, cfg.n_heads, cfg.head_dim_),
+                       (1, 2048, cfg.n_heads, cfg.head_dim_),
+                       (1, 2048, cfg.d_model // 256, 256)):
         q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         want = fa.flash_attention_plain(q, k, v)
@@ -1099,22 +1353,32 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
                        reps)
         t_l = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps)
+        # device times (host launch time left out): the kernel's, and all
+        # kernels of one SDPA call
+        d_k, _ = _device_ms(torch, lambda i: fa.flash_attention(q, k, v),
+                            reps, "flash_attention")
+        d_l, _ = _device_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps)
         flops = 4 * D * (S * (S + 1) // 2) * B * H
         nbytes = 2 * 4 * B * H * S * D
         t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
         row = {"B": B, "H": H, "S": S, "D": D, "ms": t_k, "plain_ms": t_p,
-               "library_ms": t_l, "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "library_ms": t_l, "device_ms": d_k,
+               "library_device_ms": d_l,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "flops": flops, "bytes": nbytes, "max_abs_err": ab,
                "library_rel_err": lib_rel}
         rows.append(row)
         log(f"kernel time flash_attention bf16 B={B} H={H} S={S} D={D} "
-            f"causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library "
-            f"(SDPA) {t_l:.4f} ms (rel err vs plain {lib_rel:.3g}), bound "
+            f"causal: kernel {t_k:.4f} ms (device {d_k} ms), plain "
+            f"{t_p:.4f} ms, library (SDPA) {t_l:.4f} ms (device {d_l} ms; "
+            f"rel err vs plain {lib_rel:.3g}), bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.3f} "
             f"GFLOP, {nbytes / 1e6:.2f} MB); kernel vs plain max abs err "
-            f"{ab:.4g}")
-    main, long = rows
+            f"{ab:.4g}; {flops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s")
+    main, long, wide = rows
+    H, D = main["H"], main["D"]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -1129,9 +1393,17 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
         "library_ms": main["library_ms"],
         "at": f"one {cfg.name} wave prefill's attention, B {main['B']} x "
               f"{H} heads x S {main['S']} x D {D}, bf16, causal",
-        "at_2048": {k: long[k] for k in ("ms", "plain_ms", "library_ms",
+        "device_ms": main["device_ms"],
+        "library_device_ms": main["library_device_ms"],
+        "at_2048": {k: long[k] for k in ("ms", "device_ms", "plain_ms",
+                                         "library_ms", "library_device_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err")},
+        "at_2048_d256": {k: wide[k] for k in ("H", "ms", "device_ms",
+                                              "plain_ms", "library_ms",
+                                              "library_device_ms",
+                                              "bound_ms", "bound_by",
+                                              "max_abs_err")},
     }
     return entry, rows
 

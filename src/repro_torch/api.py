@@ -399,13 +399,13 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     letter = kernelgen.blas_letter(torch.promote_types(x.dtype, w.dtype))
     d = route("matmul", tuple(x.shape) + (w.shape[-1],), letter,
               policy=pol)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    flat = x.ndim == 2
+    x2 = x if flat else x.reshape(-1, x.shape[-1])
     if not d.use_kernel:
         out = _lib_gemm(x2, w, None, 1.0, 0.0, "NN")
     else:
         out = _plan_gemm(d, x2, w, None, 1.0, 0.0, "NN")
-    return out.reshape(*lead, w.shape[-1])
+    return out if flat else out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def batched_gemm(x: torch.Tensor, w: torch.Tensor, *,

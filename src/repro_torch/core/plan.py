@@ -10,6 +10,10 @@ step, no boundary scalar code, and no stitching copy.
 Plans are cached by the full problem signature, the paper's "repeated
 same-size GEMM" sweet spot: the first call plans, every later call with
 the same shapes reuses the plan.
+
+The run-time stage also splits K (:func:`k_slices`) for regions whose
+grid underfills the card, a quantity derived from the region's grid, K,
+its kernel's bk and the card's SM count; it stays one launch a region.
 """
 from __future__ import annotations
 
@@ -24,14 +28,52 @@ from repro_torch.core.kernelgen import KernelSig
 from repro_torch.core.tiler import Block, Tiling, tile_hopper
 
 
+#: the fewest bk steps a K slice takes, so that the kernel's load ring
+#: has a next tile to fetch while it multiplies the current one
+MIN_SLICE_STEPS = 2
+
+
+def k_slices(gm: int, gn: int, K: int, bk: int, resident: int) -> int:
+    """K slices of one region (DESIGN_PORT.md §11): 1 when its gm x gn
+    grid fills the card's :data:`vmem.NUM_SMS` SMs or K has fewer than
+    2 x :data:`MIN_SLICE_STEPS` steps of bk; else as many slices as keep
+    the split grid within one wave of NUM_SMS x ``resident`` blocks (the
+    kernel's blocks an SM, ``Footprint.blocks_per_sm``; at least two
+    slices), and no more than leave each slice :data:`MIN_SLICE_STEPS`
+    steps.  One wave, not the fewest slices past NUM_SMS: a grid just
+    past a wave runs as two waves.  The kernel deals the K steps out to
+    the slices evenly (:func:`slice_steps`)."""
+    grid = gm * gn
+    steps = -(-K // bk)
+    if grid >= vmem.NUM_SMS or steps < 2 * MIN_SLICE_STEPS:
+        return 1
+    return min(max(2, vmem.NUM_SMS * resident // grid),
+               steps // MIN_SLICE_STEPS)
+
+
+def slice_steps(K: int, bk: int, slices: int) -> List[Tuple[int, int]]:
+    """The [first, end) bk steps of each slice, as the kernel deals them
+    out: the first ``steps % slices`` slices take one step more."""
+    steps = -(-K // bk)
+    lo, rem = divmod(steps, slices)
+    out, s = [], 0
+    for z in range(slices):
+        n = lo + (z < rem)
+        out.append((s, s + n))
+        s += n
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Region:
-    """A (gm x gn) grid of identical (bm x bn) kernel blocks."""
+    """A (gm x gn) grid of identical (bm x bn) kernel blocks, K cut into
+    ``slices`` (:func:`k_slices`)."""
     sig: KernelSig
     m0: int
     n0: int
     gm: int
     gn: int
+    slices: int
 
     @property
     def m_extent(self) -> int:
@@ -94,7 +136,16 @@ def _override_plan(M: int, N: int, K: int, letter: str, trans: str,
                                 min(sig.bn, N - n0)))
     tiling = Tiling(M, N, tuple(blocks), "tuned")
     return Plan(M, N, K, letter, trans,
-                (Region(sig, 0, 0, gm, gn),), tiling)
+                (Region(sig, 0, 0, gm, gn, _slices(sig, gm, gn, K)),),
+                tiling)
+
+
+def _slices(sig: KernelSig, gm: int, gn: int, K: int) -> int:
+    """:func:`k_slices` for a real kernel; the complex kernel keeps its
+    whole-K loop (one slice)."""
+    if sig.complex_:
+        return 1
+    return k_slices(gm, gn, K, sig.bk, sig.footprint().blocks_per_sm)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -131,9 +182,10 @@ def build_plan(M: int, N: int, K: int, letter: str, trans: str,
     regions: List[Region] = []
     for m0, m, gm, runs in merged:
         for n0, n, gn in runs:
-            bk = _choose_bk(letter, trans, m, n, K)
-            regions.append(Region(KernelSig(letter, trans, m, n, bk),
-                                  m0, n0, gm, gn))
+            sig = KernelSig(letter, trans, m, n, _choose_bk(letter, trans,
+                                                            m, n, K))
+            regions.append(Region(sig, m0, n0, gm, gn,
+                                  _slices(sig, gm, gn, K)))
     return Plan(M, N, K, letter, trans, tuple(regions), tiling)
 
 
@@ -165,23 +217,33 @@ def execute(plan: Plan, a: torch.Tensor, b: torch.Tensor,
     from repro_torch.kernels import iaat_gemm
     M, N, trans = plan.M, plan.N, plan.trans
     dtype = torch.promote_types(a.dtype, b.dtype)
-    a, b = a.to(dtype), b.to(dtype)
+    if a.dtype != dtype:
+        a = a.to(dtype)
+    if b.dtype != dtype:
+        b = b.to(dtype)
     out = torch.empty((M, N), dtype=dtype, device=a.device)
     a_m_axis = 0 if trans[0] == "N" else 1
     b_n_axis = 1 if trans[1] == "N" else 0
+    grad = iaat_gemm.records_grad(a, b, c)
     for r in plan.regions:
         m_lo, m_hi = r.m0, min(M, r.m0 + r.m_extent)
         n_lo, n_hi = r.n0, min(N, r.n0 + r.n_extent)
         if m_lo >= M or n_lo >= N:
             continue  # fully-overhang region (alignment padding)
-        a_sl = _rows(a, m_lo, m_hi, a_m_axis)
-        b_sl = _rows(b, n_lo, n_hi, b_n_axis)
-        c_sl = None if c is None else c[m_lo:m_hi, n_lo:n_hi]
-        view = out[m_lo:m_hi, n_lo:n_hi]
-        if iaat_gemm.records_grad(a, b, c):
+        if (m_lo, m_hi, n_lo, n_hi) == (0, M, 0, N):
+            # the region is all of C (the decode step's case): no views,
+            # which saves host time a call
+            a_sl, b_sl, c_sl, view = a, b, c, out
+        else:
+            a_sl = _rows(a, m_lo, m_hi, a_m_axis)
+            b_sl = _rows(b, n_lo, n_hi, b_n_axis)
+            c_sl = None if c is None else c[m_lo:m_hi, n_lo:n_hi]
+            view = out[m_lo:m_hi, n_lo:n_hi]
+        if grad:
             view.copy_(iaat_gemm.gemm_region(r.sig, a_sl, b_sl, c_sl,
-                                             alpha=alpha, beta=beta))
+                                             alpha=alpha, beta=beta,
+                                             slices=r.slices))
         else:
             iaat_gemm.gemm_region(r.sig, a_sl, b_sl, c_sl, alpha=alpha,
-                                  beta=beta, out=view)
+                                  beta=beta, out=view, slices=r.slices)
     return out

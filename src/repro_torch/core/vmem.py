@@ -9,7 +9,10 @@ of one CUDA block are these (DESIGN_PORT.md §1):
    (bk x bn) tile of B per K step (the complex kernel two of each: the
    real and the imaginary plane).  A block may use 227 KB of the SM's
    256 KB, above 48 KB only as dynamic shared memory after an opt-in;
-   :func:`footprint` checks a candidate against that budget.
+   :func:`footprint` checks a candidate against that budget.  The real
+   kernel's asynchronous path keeps a ring of such tiles, as many stages
+   (up to :data:`RING_STAGES_MAX`) as leave room for two blocks on an SM
+   (:data:`RING_BUDGET`, :func:`ring_stage_bytes`, ``Footprint.stages``).
 2. *Registers.*  Each of the kernel's 256 threads keeps bm*bn/256
    accumulators (two 32-bit registers each for f64; three planes of them,
    Karatsuba's P1, P2 and P3, in the complex kernel).  :func:`reg_pressure`
@@ -27,6 +30,15 @@ import dataclasses
 import torch
 
 SMEM_OPTIN_BYTES = 232448       # 227 KB: the most one block can opt into
+SMEM_SM_BYTES = 233472          # 228 KB of shared memory on one SM
+SMEM_BLOCK_RESERVED = 1024      # shared memory the runtime keeps per block
+NUM_SMS = 132                   # streaming multiprocessors of an H100 SXM
+#: resident blocks per SM the table is designed for (ACC_REG_CAP keeps two
+#: blocks' registers within one SM's 65,536)
+BLOCKS_PER_SM = 2
+RING_STAGES_MAX = 3             # stages of the real kernel's cp.async ring
+#: shared memory a ring may take so that BLOCKS_PER_SM blocks share an SM
+RING_BUDGET = SMEM_SM_BYTES // BLOCKS_PER_SM - SMEM_BLOCK_RESERVED
 NTHREADS = 256                  # threads per block of the IAAT kernel
 ACC_REG_CAP = 64                # accumulator registers per thread
 LINE_BYTES = 128                # one coalesced warp transaction (32 x 4 B)
@@ -74,14 +86,31 @@ def align_k(k: int, dtype) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Footprint:
+    """``total`` is one stage of the synchronous loop (the complex kernel
+    and the real kernel's scalar path); ``stages`` x ``stage_bytes`` is the
+    real kernel's ring (one stage for the complex kernel)."""
     a_bytes: int
     b_bytes: int
     acc_regs: int
     total: int
+    stages: int = 1
+    stage_bytes: int = 0
+
+    @property
+    def ring_bytes(self) -> int:
+        return self.stages * self.stage_bytes
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks of the ring path resident on one SM: BLOCKS_PER_SM when
+        the ring fits RING_BUDGET, else one."""
+        return BLOCKS_PER_SM if self.ring_bytes <= RING_BUDGET else 1
 
     @property
     def fits(self) -> bool:
-        return self.total <= SMEM_OPTIN_BYTES and self.acc_regs <= ACC_REG_CAP
+        return self.total <= SMEM_OPTIN_BYTES and \
+            self.ring_bytes <= SMEM_OPTIN_BYTES and \
+            self.acc_regs <= ACC_REG_CAP
 
 
 def reg_pressure(bm: int, bn: int, acc_dtype=torch.float32, *,
@@ -93,20 +122,38 @@ def reg_pressure(bm: int, bn: int, acc_dtype=torch.float32, *,
     return -(-bm * bn // NTHREADS) * words * planes
 
 
+def ring_stage_bytes(bm: int, bn: int, bk: int, dtype) -> int:
+    """One stage of the real kernel's ring (``csrc/tile.cuh`` ``Ring``):
+    the A tile as bm rows of bk (k contiguous) and the B tile as bk rows
+    of bn or bn rows of bk (whichever way B's unit stride runs: room for
+    the larger), every row padded by 16 bytes so that rows stay aligned
+    for 16-byte copies and a column spreads over the banks."""
+    item = itemsize(dtype)
+    p = 16 // item
+    return (bm * (bk + p) + max(bk * (bn + p), bn * (bk + p))) * item
+
+
 def footprint(bm: int, bn: int, bk: int, dtype, *, complex_: bool = False,
               acc_dtype=torch.float32) -> Footprint:
     """Shared bytes and accumulator registers of one (bm, bn, bk) block:
     the A tile bk x (bm + pad) and the B tile bk x (bn + pad), staged once
-    per K step (no double buffering in this kernel).  ``dtype`` is the
-    plane type; a complex block stages a real and an imaginary plane of
-    each tile (the Karatsuba sums Ar+Ai, Br+Bi are formed in registers,
-    not staged)."""
+    per K step in the synchronous loop.  ``dtype`` is the plane type; a
+    complex block stages a real and an imaginary plane of each tile (the
+    Karatsuba sums Ar+Ai, Br+Bi are formed in registers, not staged) and
+    has no ring.  A real block's ring takes as many stages of
+    :func:`ring_stage_bytes` as fit :data:`RING_BUDGET` (two blocks an
+    SM), at most :data:`RING_STAGES_MAX` and at least one (then one block
+    an SM, within the 227 KB opt-in)."""
     item, p = itemsize(dtype), pad(dtype)
     planes = 2 if complex_ else 1
     a = bk * (bm + p) * item * planes
     b = bk * (bn + p) * item * planes
-    return Footprint(a, b, reg_pressure(bm, bn, acc_dtype,
-                                        complex_=complex_), a + b)
+    regs = reg_pressure(bm, bn, acc_dtype, complex_=complex_)
+    if complex_:
+        return Footprint(a, b, regs, a + b)
+    stage = ring_stage_bytes(bm, bn, bk, dtype)
+    stages = max(1, min(RING_STAGES_MAX, RING_BUDGET // stage))
+    return Footprint(a, b, regs, a + b, stages, stage)
 
 
 def thread_layout_ok(bm: int, bn: int) -> bool:

@@ -2,13 +2,14 @@
 
 At first use :func:`load` compiles each source of :data:`SOURCES`
 (``csrc/iaat_gemm.cu``, ``csrc/grouped_gemm.cu``, both on the shared
-``csrc/tile.cuh``) once per real letter (S, D, H), each source of
+``csrc/tile.cuh``) once per real letter (S, D, H), ``iaat_gemm.cu`` once
+per letter and load path (:data:`IAAT_PATHS`), each source of
 :data:`SOURCES_CX` (``csrc/cx_gemm.cu``, the complex Karatsuba kernel)
 once per complex letter (C, Z), each object holding the template
 instances the install-time table (``core.kernelgen``) lists for that
 letter, and each source of :data:`SOURCES_ONCE`
 (``csrc/flash_attention.cu`` and ``csrc/ssd.cu``, each with its f32 and
-bf16 instances in one object) once; all ten ``nvcc`` jobs start
+bf16 instances in one object) once; all sixteen ``nvcc`` jobs start
 together.  The objects are linked
 into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
@@ -35,8 +36,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.TABLE_LETTERS)}
 #: kernel sources, each built once per real letter (S, D, H); the C
-#: entries they export are ``<stem>_<letter>``
+#: entries they export are ``<stem>_<letter>``; ``iaat_gemm`` once per
+#: letter and load path (:data:`IAAT_PATHS`), exporting
+#: ``iaat_gemm_<path>_<letter>``
 SOURCES = ("iaat_gemm", "grouped_gemm")
+#: the IAAT kernel's load paths, in the order of their -DIAAT_MODE code
+IAAT_PATHS = ("scalar", "ring_n", "ring_k")
 #: kernel sources built once per complex letter (C, Z); there is no
 #: complex grouped kernel, as in the reference
 SOURCES_CX = ("cx_gemm",)
@@ -89,11 +94,16 @@ def build() -> pathlib.Path:
     work = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     for letter, text in _tables().items():
         (work / f"iaat_table_{letter}.inc").write_text(text)
-    jobs = [(src, f"{src}_{letter}.o",
-             [f"-DIAAT_LETTER={_LETTER_CODE[letter]}"])
-            for srcs, letters in ((SOURCES, kernelgen.KERNEL_LETTERS),
-                                  (SOURCES_CX, kernelgen.COMPLEX_LETTERS))
-            for src in srcs for letter in letters]
+    # the IAAT objects first: the longest jobs
+    jobs = [("iaat_gemm", f"iaat_gemm_{letter}_{path}.o",
+             [f"-DIAAT_LETTER={_LETTER_CODE[letter]}", f"-DIAAT_MODE={m}"])
+            for letter in kernelgen.KERNEL_LETTERS
+            for m, path in enumerate(IAAT_PATHS)]
+    jobs += [(src, f"{src}_{letter}.o",
+              [f"-DIAAT_LETTER={_LETTER_CODE[letter]}"])
+             for srcs, letters in ((SOURCES[1:], kernelgen.KERNEL_LETTERS),
+                                   (SOURCES_CX, kernelgen.COMPLEX_LETTERS))
+             for src in srcs for letter in letters]
     jobs += [(src, f"{src}.o", []) for src in SOURCES_ONCE]
     procs, objs = [], []
     for src, name, defs in jobs:
@@ -135,8 +145,9 @@ def load() -> ctypes.CDLL:
         p, ll, i, d = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
             ctypes.c_double
         argtypes = {
-            "iaat_gemm": [i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, p, ll, ll,
-                          i, i, i, d, d, p],
+            **{f"iaat_gemm_{path}": [i, i, i, p, ll, ll, p, ll, ll, p, ll,
+                                     ll, p, ll, ll, i, i, i, d, d, i, p, p,
+                                     p] for path in IAAT_PATHS},
             "batched_gemm": [i, i, i, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll,
                              ll, i, i, i, i, p],
             "ragged_gemm": [i, i, i, p, ll, ll, p, ll, ll, ll, p, i, i, p, ll,

@@ -18,9 +18,9 @@
 // weight element is read from global memory once per row block, and at
 // C <= BM there is one row block per group, so once per call; blocks are
 // wide in N (the table's widest bn that N fills) so the re-reads of the
-// small x stay few.  Like iaat_gemm.cu it does not yet pipeline its loads
-// (no cp.async/TMA ring) or use tensor cores: a simple kernel that is
-// right comes first.
+// small x stay few.  It does not yet pipeline its loads (iaat_gemm.cu's
+// cp.async ring, tile.cuh ring_product, is not used here) or use tensor
+// cores: a simple kernel that is right comes first.
 //
 // Design (per CUDA block, 256 threads; tile.cuh's block_product):
 //   * batched: grid (N/BN, C/BM, G); the block offsets x, w and the output

@@ -1,8 +1,9 @@
 // Shared pieces of the port's GEMM kernels (iaat_gemm.cu, grouped_gemm.cu,
 // cx_gemm.cu): the accumulator types, the strided, bounds-checked,
 // zero-filling tile loader, and the K loop of one (BM x BN) output block
-// on CUDA cores.  flash_attention.cu uses only the widen/narrow
-// conversions.
+// on CUDA cores (block_product); and the IAAT kernel's asynchronous K
+// loop (ring_product: a cp.async ring of 16-byte copies).
+// flash_attention.cu uses only the widen/narrow conversions.
 //
 // Thread layout (256 threads): each thread owns TM rows x TN = 4 columns
 // of the block, bn/4 threads across a row (core/vmem.py::thread_layout_ok
@@ -147,6 +148,179 @@ __device__ __forceinline__ void store_block(
       if (n < N) O[(int64_t)m * o_sm + (int64_t)n * o_sn] = narrow<T>(acc[i][j]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The asynchronous K loop of the IAAT kernel (iaat_gemm.cu).
+//
+// A ring of STAGES (A, B) tile pairs in shared memory (as many as leave
+// room for two blocks an SM, up to 3: vmem.footprint), filled by 16-byte
+// cp.async along each operand's unit-stride dim: A (M x K) with k of unit
+// stride is staged as BM rows of BK; B (K x N) as BK rows of BN when n has
+// unit stride (B_KC false: the NN weights), or as BN rows of BK when k has
+// (B_KC true: the tied embed.T).  Every row is padded by one 16-byte chunk,
+// so rows stay aligned for the copies and a warp's 16-byte reads down a
+// column of rows spread over the banks.  Edges of M, N and K are zero-
+// filled through cp.async's source-size operand.  While the block
+// multiplies stage t, the copies of the next STAGES - 1 tiles are in
+// flight.  The caller guarantees the alignment (iaat_gemm.py chooses this
+// path only for operands whose rows are 16-byte aligned).
+// ---------------------------------------------------------------------------
+
+template <typename T, int BM, int BN, int BK, bool B_KC>
+struct Ring {
+  static constexpr int V = 16 / (int)sizeof(T);   // elements of one copy
+  static constexpr int LDA = BK + V;              // A: BM rows of BK
+  static constexpr int LDB = B_KC ? BK + V : BN + V;
+  static constexpr int A_ELEMS = BM * LDA;
+  // room for either orientation of B (vmem.ring_stage_bytes)
+  static constexpr int B_ELEMS = BK * (BN + V) > BN * (BK + V)
+                                     ? BK * (BN + V) : BN * (BK + V);
+  static constexpr size_t STAGE_BYTES =
+      (size_t)(A_ELEMS + B_ELEMS) * sizeof(T);
+  static constexpr int BUDGET = 115712;           // vmem.RING_BUDGET
+  static constexpr int STAGES_MAX = 3;            // vmem.RING_STAGES_MAX
+  static constexpr int FIT = (int)(BUDGET / STAGE_BYTES);
+  // as many stages as leave room for two blocks an SM, at least one
+  static constexpr int STAGES =
+      FIT < 1 ? 1 : (FIT < STAGES_MAX ? FIT : STAGES_MAX);
+  static_assert(STAGE_BYTES <= 232448, "one ring stage must fit 227 KB");
+  static constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// R rows x C columns of x (row stride s, unit column stride) at rows
+// [r0, r0 + R), columns [c0, c0 + C) into tile[r][c] (row stride LD),
+// zero past R_end rows and C_end columns.
+template <typename T, int R, int C, int LD>
+__device__ __forceinline__ void ring_load(T* tile, const T* __restrict__ x,
+                                          int64_t s, int r0, int R_end,
+                                          int c0, int C_end) {
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int CPR = C / V;
+  for (int e = threadIdx.x; e < R * CPR; e += NT) {
+    const int r = e / CPR, c = (e % CPR) * V;
+    const int rg = r0 + r, cg = c0 + c;
+    int n = rg < R_end ? C_end - cg : 0;
+    n = n < 0 ? 0 : (n > V ? V : n);
+    cp_async16(tile + r * LD + c, n ? x + (int64_t)rg * s + cg : x,
+               n * (int)sizeof(T));
+  }
+}
+
+// N contiguous elements of shared memory, widened (8, 16 or 32 bytes)
+template <typename T, int N>
+__device__ __forceinline__ void load_widen(typename AccOf<T>::type (&out)[N],
+                                           const T* p) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  static_assert(BYTES % 8 == 0, "vector width");
+  alignas(16) T buf[N];
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i)
+      reinterpret_cast<uint4*>(buf)[i] = reinterpret_cast<const uint4*>(p)[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < BYTES / 8; ++i)
+      reinterpret_cast<uint2*>(buf)[i] = reinterpret_cast<const uint2*>(p)[i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = widen(buf[i]);
+}
+
+// The column of accumulator j of thread tx: TN contiguous columns when B
+// is staged k-major by rows of n (16-byte reads along a row), TX-strided
+// columns when staged n-major (a warp reads down consecutive rows).
+template <int BM, int BN, bool B_KC>
+__device__ __forceinline__ int ring_col(int tx, int j) {
+  return B_KC ? tx + j * Layout<BM, BN>::TX : tx * TN + j;
+}
+
+// acc[i][j] = sum over k in [k_lo, k_hi) of A[m0 + ty + i TY, k] *
+// B[k, n0 + ring_col(tx, j)], A and B addressed through their row strides
+// (k of unit stride in A; n, or k when B_KC, in B).  Rows of the block at
+// or past M are not multiplied (uniform skip of whole fragment rows).
+template <typename T, int BM, int BN, int BK, bool B_KC>
+__device__ __forceinline__ void ring_product(
+    typename AccOf<T>::type (&acc)[Layout<BM, BN>::TM][TN],
+    unsigned char* smem_raw, const T* __restrict__ A, int64_t a_sm,
+    const T* __restrict__ B, int64_t b_s, int m0, int M, int n0, int N,
+    int k_lo, int k_hi) {
+  typedef typename AccOf<T>::type Acc;
+  typedef Layout<BM, BN> L;
+  typedef Ring<T, BM, BN, BK, B_KC> R;
+  constexpr int V = R::V, S = R::STAGES;
+  T* base = reinterpret_cast<T*>(smem_raw);
+  const int tx = threadIdx.x % L::TX, ty = threadIdx.x / L::TX;
+  // fragment rows i < live hold a row below M for some thread
+  const int live = (M - m0 + L::TY - 1) / L::TY;
+
+#pragma unroll
+  for (int i = 0; i < L::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
+
+  const int steps = (k_hi - k_lo + BK - 1) / BK;
+  auto issue = [&](int step) {
+    if (step < steps) {
+      T* As = base + (step % S) * (R::A_ELEMS + R::B_ELEMS);
+      T* Bs = As + R::A_ELEMS;
+      const int k0 = k_lo + step * BK;
+      ring_load<T, BM, BK, R::LDA>(As, A, a_sm, m0, M, k0, k_hi);
+      if constexpr (B_KC)
+        ring_load<T, BN, BK, R::LDB>(Bs, B, b_s, n0, N, k0, k_hi);
+      else
+        ring_load<T, BK, BN, R::LDB>(Bs, B, b_s, k0, k_hi, n0, N);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(s);
+
+  for (int step = 0; step < steps; ++step) {
+    issue(step + S - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1) : "memory");
+    __syncthreads();
+    const T* As = base + (step % S) * (R::A_ELEMS + R::B_ELEMS);
+    const T* Bs = As + R::A_ELEMS;
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += V) {
+      Acc a[L::TM][V], b[V][TN];
+#pragma unroll
+      for (int i = 0; i < L::TM; ++i)
+        if (i < live) load_widen<T, V>(a[i], As + (ty + i * L::TY) * R::LDA + kk);
+      if constexpr (B_KC) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          Acc col[V];
+          load_widen<T, V>(col, Bs + ring_col<BM, BN, B_KC>(tx, j) * R::LDB + kk);
+#pragma unroll
+          for (int q = 0; q < V; ++q) b[q][j] = col[q];
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          load_widen<T, TN>(b[q], Bs + (kk + q) * R::LDB + tx * TN);
+      }
+#pragma unroll
+      for (int i = 0; i < L::TM; ++i)
+        if (i < live)
+#pragma unroll
+          for (int q = 0; q < V; ++q)
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = fma(a[i][q], b[q][j], acc[i][j]);
+    }
+    __syncthreads();   // the stage is free for the copies of step + S
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace iaat

@@ -5,12 +5,15 @@ Counterpart of ``repro/kernels/flash_attention.py``: q (B, Hq, Sq, D),
 k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype, GQA by kv head
 ``h // (Hq // Hkv)`` with K and V never repeated in memory.
 
-* On a CUDA tensor :func:`flash_attention` launches the hand-written CUDA
+* On a CUDA tensor :func:`flash_attention` launches a hand-written CUDA
   kernel (``csrc/flash_attention.cu``, built by ``kernels/build.py``) or
-  raises; there is no fallback.  Each launch is checked with
-  ``cudaGetLastError`` and counted (:func:`launch_count`).  The kernel's
-  tile sizes are its own, so the reference's ``bq``/``bkv`` have no
-  counterpart here.
+  raises; there is no fallback.  bf16 at head dims :data:`TC_HEAD_DIMS`
+  runs the tensor-core kernel (``wgmma``, ``flash_attention_tc``), every
+  other (dtype, head dim) the CUDA-core kernel (``flash_attention``): the
+  choice is by type (:func:`kernel_for`), never on failure.  Each launch
+  is checked with ``cudaGetLastError`` and counted per kernel
+  (:func:`launch_count`).  The kernels' tile sizes are their own, so the
+  reference's ``bq``/``bkv`` have no counterpart here.
 * On a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
   version: the same online softmax over KV chunks, in f32, with the same
   masks and the same finite ``NEG_INF``/``1e-37`` handling.
@@ -28,25 +31,50 @@ from repro_torch.kernels.iaat_gemm import records_grad
 
 #: the reference kernel's finite stand-in for -inf (``flash_attention.py:23``)
 NEG_INF = -1e30
-#: head dims the CUDA kernel is instantiated for
+#: head dims the CUDA kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims of the tensor-core kernel (bf16 only)
+TC_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: the most blocks a CUDA grid takes along y and z
 _GRID_YZ_MAX = 65535
 #: KV chunk of the plain version (the reference kernel's default bkv)
 _PLAIN_CHUNK = 128
 
-_launches = 0
+_launches = {"flash_attention": 0, "flash_attention_tc": 0}
 
 
-def launch_count() -> int:
-    """CUDA kernel launches since the last :func:`reset_launch_count`."""
-    return _launches
+def launch_count(kernel: Optional[str] = None) -> int:
+    """CUDA launches since the last :func:`reset_launch_count`: of
+    ``kernel`` ("flash_attention_tc", the tensor-core kernel, or
+    "flash_attention", the CUDA-core one), or of both when None."""
+    if kernel is None:
+        return sum(_launches.values())
+    return _launches[kernel]
 
 
 def reset_launch_count() -> None:
-    global _launches
-    _launches = 0
+    for k in _launches:
+        _launches[k] = 0
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call of this (dtype, head dim) launches, as the C
+    entry chooses it."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "flash_attention_tc"
+    return "flash_attention"
+
+
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` when it has a unit stride along D and 16-byte-aligned rows
+    (what the tensor-core kernel's 16-byte copies need), else a contiguous
+    copy of it."""
+    es = t.element_size()
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+            (st * es) % 16 == 0 for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -94,7 +122,6 @@ def _strides(t):
 
 
 def _launch(q, k, v, causal, window, q_offset, scale):
-    global _launches
     from repro_torch.kernels import build
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -122,6 +149,9 @@ def _launch(q, k, v, causal, window, q_offset, scale):
         return out
     if Sk == 0:
         return out.zero_()
+    kernel = kernel_for(q.dtype, D)
+    if kernel == "flash_attention_tc":
+        q, k, v = _rows_aligned(q), _rows_aligned(k), _rows_aligned(v)
     lib = build.load()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -133,10 +163,13 @@ def _launch(q, k, v, causal, window, q_offset, scale):
     if rc == -1:
         raise RuntimeError(f"flash_attention: ({q.dtype}, D={D}) is not an "
                            "instance of the built kernel")
+    if rc == -2:
+        raise RuntimeError("flash_attention: the tensor-core kernel refused "
+                           "operands without 16-byte-aligned rows")
     if rc:
         msg = lib.iaat_error_string(rc).decode()
         raise RuntimeError(f"flash_attention: launch failed: {msg}")
-    _launches += 1
+    _launches[kernel] += 1
     return out
 
 

@@ -8,7 +8,12 @@ one :class:`KernelSig`.
   there is no fallback: ``csrc/iaat_gemm.cu`` for S/D/H,
   ``csrc/cx_gemm.cu`` (the 3-mult Karatsuba) for C/Z, both built by
   ``kernels/build.py``.  Each launch is checked with ``cudaGetLastError``
-  and counted (:func:`launch_count`, per kernel).
+  and counted (:func:`launch_count`, per kernel; :func:`path_count`, per
+  path of the real kernel: the cp.async ring or the scalar loads, and
+  split-K launches).  A real region may be cut into K slices (the plan's
+  ``Region.slices``): one launch still, its blocks summing into a
+  ``torch.empty`` workspace, the last block of each output tile adding
+  the slices in order (per-tile tickets, one zeroed array per device).
 * On a CPU tensor it runs :func:`gemm_region_plain`, the plain PyTorch
   version (f32/f64 accumulation, one cast; for C/Z the same Karatsuba
   planes and complex epilogue as the kernel): the tests' reference, and
@@ -33,14 +38,28 @@ interpret-only mode (DESIGN_PORT.md §5); Z likewise, on f64 planes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core import templates
 from repro_torch.core.kernelgen import KernelSig
+from repro_torch.kernels import build
 
 _launches = {"iaat_gemm": 0, "cx_gemm": 0}
+#: launches of the real kernel by path: "ring" (16-byte cp.async copies),
+#: "scalar" (synchronous element loads), and "split" (slices > 1, either
+#: path)
+_paths = {"ring": 0, "scalar": 0, "split": 0}
+#: the real kernel's C entry (``iaat_gemm_<path>_<letter>``) and the path
+#: it counts under, per load mode
+_MODES = {0: ("scalar", "scalar"), 1: ("ring_n", "ring"),
+          2: ("ring_k", "ring")}
+#: one zeroed ticket per output tile of a split launch, per device; a
+#: split grid underfills the card, so it has fewer tiles than this
+_TICKETS_LEN = 1024
+_tickets = {}
 
 
 def launch_count(kernel: Optional[str] = None) -> int:
@@ -53,8 +72,45 @@ def launch_count(kernel: Optional[str] = None) -> int:
 
 
 def reset_launch_count() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    for d in (_launches, _paths):
+        for k in d:
+            d[k] = 0
+
+
+def path_count(path: str) -> int:
+    """Real-kernel launches since the last :func:`reset_launch_count` on
+    ``path``: "ring", "scalar" or "split"."""
+    return _paths[path]
+
+
+def _row_aligned(t: torch.Tensor, unit: int) -> bool:
+    """Whether ``t`` (2-D) has unit stride along dim ``unit`` and
+    16-byte-aligned rows along the other dim, so that 16-byte copies
+    along ``unit`` are aligned."""
+    return (t.stride(unit) == 1 and t.data_ptr() % 16 == 0 and
+            (t.stride(1 - unit) * t.element_size()) % 16 == 0)
+
+
+def load_mode(opa: torch.Tensor, opb: torch.Tensor) -> int:
+    """The real kernel's path for op(A) (M x K) and op(B) (K x N), by
+    their strides: 1 (the ring, B read along N) or 2 (the ring, B read
+    along K) when A has k of unit stride and both have 16-byte-aligned
+    rows; else 0 (the scalar path)."""
+    if not _row_aligned(opa, 1):
+        return 0
+    if _row_aligned(opb, 1):
+        return 1
+    if _row_aligned(opb, 0):
+        return 2
+    return 0
+
+
+def _tickets_on(dev: torch.device) -> torch.Tensor:
+    t = _tickets.get(dev)
+    if t is None:
+        t = _tickets[dev] = torch.zeros(_TICKETS_LEN, dtype=torch.int32,
+                                        device=dev)
+    return t
 
 
 def c_dtype(sig: KernelSig) -> torch.dtype:
@@ -67,8 +123,12 @@ def c_dtype(sig: KernelSig) -> torch.dtype:
 
 def records_grad(*ts: Optional[torch.Tensor]) -> bool:
     """Whether autograd would record a call on these operands."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in ts)
+    if not torch.is_grad_enabled():
+        return False
+    for t in ts:
+        if t is not None and t.requires_grad:
+            return True
+    return False
 
 
 # --------------------------------------------------------------------------
@@ -112,8 +172,23 @@ def cx_region_plain(sig: KernelSig, a, b, c=None, alpha=1.0, beta=0.0):
 # The kernel launch.
 # --------------------------------------------------------------------------
 
-def _launch(sig: KernelSig, a, b, c, alpha, beta, out):
-    from repro_torch.kernels import build
+@functools.lru_cache(maxsize=None)
+def _sig_types(sig: KernelSig):
+    """(dtype of a, b and out, dtype of c) of a signature's launch."""
+    return sig.dtype, c_dtype(sig)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(sig: KernelSig, mode: Optional[int]):
+    """The C entry of a signature's launch: the complex kernel's for C/Z
+    (``mode`` None), else the real kernel's for load path ``mode``."""
+    lib = build.load()
+    if mode is None:
+        return getattr(lib, f"cx_gemm_{sig.letter}")
+    return getattr(lib, f"iaat_gemm_{_MODES[mode][0]}_{sig.letter}")
+
+
+def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
     opa = templates.op(a, sig.trans[0])
     opb = templates.op(b, sig.trans[1])
     M, K = opa.shape
@@ -124,43 +199,67 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out):
     if min(M, N, K) < 1:
         raise ValueError(f"empty GEMM {M}x{N}x{K}")
     dev = a.device
-    for name, t in (("b", b), ("c", c), ("out", out)):
-        if t is not None and t.device != dev:
+    idx = a.get_device()
+    dt, dt_c = _sig_types(sig)
+    for name, t, want in (("a", a, dt), ("b", b, dt), ("c", c, dt_c),
+                          ("out", out, dt)):
+        if t is None:
+            continue
+        if t.get_device() != idx:
             raise ValueError(f"{name} on {t.device}, a on {dev}")
-    for name, t, want in (("a", a, sig.dtype), ("b", b, sig.dtype),
-                          ("c", c, c_dtype(sig)), ("out", out, sig.dtype)):
-        if t is not None and t.dtype != want:
+        if t.dtype != want:
             raise TypeError(f"{sig.name}: {name} is {t.dtype}, the kernel "
                             f"takes {want}")
-    if c is not None and tuple(c.shape) != (M, N):
+    if c is not None and c.shape != (M, N):
         raise ValueError(f"c {tuple(c.shape)} != ({M}, {N})")
     if out is None:
-        out = torch.empty((M, N), dtype=sig.dtype, device=dev)
-    elif tuple(out.shape) != (M, N):
+        out = torch.empty((M, N), dtype=dt, device=dev)
+    elif out.shape != (M, N):
         raise ValueError(f"out {tuple(out.shape)} != ({M}, {N})")
     if sig.complex_:
+        if slices != 1:
+            raise ValueError(f"{sig.name}: the complex kernel takes no K "
+                             "slices")
         # complex strides in complex elements: the kernel reads each
         # (re, im) pair in place; a lazily conjugated view is resolved
         # first (its memory holds the unconjugated values)
         opa, opb = opa.resolve_conj(), opb.resolve_conj()
         c = None if c is None else c.resolve_conj()
-        kernel = "cx_gemm"
-        scalars = (complex(alpha).real, complex(alpha).imag,
-                   complex(beta).real, complex(beta).imag)
+        kernel, mode = "cx_gemm", None
+        tail = (complex(alpha).real, complex(alpha).imag,
+                complex(beta).real, complex(beta).imag)
     else:
+        if slices < 1:
+            raise ValueError(f"{sig.name}: {slices} K slices")
         kernel = "iaat_gemm"
-        scalars = (float(alpha), float(beta))
-    fn = getattr(build.load(), f"{kernel}_{sig.letter}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(sig.bm, sig.bn, sig.bk,
-                opa.data_ptr(), opa.stride(0), opa.stride(1),
-                opb.data_ptr(), opb.stride(0), opb.stride(1),
-                None if c is None else c.data_ptr(),
-                0 if c is None else c.stride(0),
-                0 if c is None else c.stride(1),
-                out.data_ptr(), out.stride(0), out.stride(1),
-                M, N, K, *scalars, stream)
+        mode = load_mode(opa, opb)
+        ws = None
+        if slices > 1:
+            tiles = -(-M // sig.bm) * -(-N // sig.bn)
+            if tiles > _TICKETS_LEN:
+                raise ValueError(f"{sig.name}: a split grid of {tiles} "
+                                 f"tiles exceeds the {_TICKETS_LEN} tickets")
+            tickets = _tickets_on(dev)
+            # held until the launch is queued; the stream orders any reuse
+            ws = torch.empty((slices, M, N), dtype=sig.acc_dtype, device=dev)
+        tail = (float(alpha), float(beta), slices,
+                None if ws is None else ws.data_ptr(),
+                None if ws is None else tickets.data_ptr())
+    sa, sb = opa.stride(), opb.stride()
+    so = out.stride()
+    sc = (0, 0) if c is None else c.stride()
+    args = (sig.bm, sig.bn, sig.bk, opa.data_ptr(), sa[0], sa[1],
+            opb.data_ptr(), sb[0], sb[1],
+            None if c is None else c.data_ptr(), sc[0], sc[1],
+            out.data_ptr(), so[0], so[1], M, N, K, *tail)
+    fn = _entry(sig, mode)
+    # the launch goes to the current device and a's current stream (the
+    # raw handle: a Stream object a call costs host time at decode)
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc == -1:
         raise RuntimeError(f"{sig.name}: no such instance in the built "
                            f"kernel table")
@@ -168,12 +267,15 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out):
         msg = build.load().iaat_error_string(rc).decode()
         raise RuntimeError(f"{sig.name}: launch failed: {msg}")
     _launches[kernel] += 1
+    if mode is not None:
+        _paths[_MODES[mode][1]] += 1
+        _paths["split"] += slices > 1
     return out
 
 
-def _forward(sig: KernelSig, a, b, c, alpha, beta, out=None):
+def _forward(sig: KernelSig, a, b, c, alpha, beta, out=None, slices=1):
     if a.device.type == "cuda":
-        return _launch(sig, a, b, c, alpha, beta, out)
+        return _launch(sig, a, b, c, alpha, beta, out, slices)
     if a.device.type != "cpu":
         raise ValueError(f"no IAAT kernel for device {a.device}")
     res = gemm_region_plain(sig, a, b, c, alpha, beta)
@@ -202,11 +304,11 @@ def _adjoints(sig: KernelSig, a, b, dC, alpha):
 
 class _RegionGemm(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, sig, alpha, beta, a, b, c):
+    def forward(ctx, sig, alpha, beta, slices, a, b, c):
         ctx.sig, ctx.alpha, ctx.beta = sig, alpha, beta
         ctx.has_c = c is not None
         ctx.save_for_backward(a, b)
-        return _forward(sig, a, b, c, alpha, beta)
+        return _forward(sig, a, b, c, alpha, beta, slices=slices)
 
     @staticmethod
     def backward(ctx, dC):
@@ -214,7 +316,7 @@ class _RegionGemm(torch.autograd.Function):
         dCa = dC.to(ctx.sig.acc_dtype)
         dA, dB = _adjoints(ctx.sig, a, b, dCa, ctx.alpha)
         dc = (ctx.beta * dCa).to(dC.dtype) if ctx.has_c else None
-        return None, None, None, dA, dB, dc
+        return None, None, None, None, dA, dB, dc
 
 
 # --------------------------------------------------------------------------
@@ -222,7 +324,7 @@ class _RegionGemm(torch.autograd.Function):
 # --------------------------------------------------------------------------
 
 def gemm_region(sig: KernelSig, a, b, c=None, *, alpha=1.0, beta=0.0,
-                out: Optional[torch.Tensor] = None):
+                out: Optional[torch.Tensor] = None, slices: int = 1):
     """Run one plan region: op(a) @ op(b) (+ beta*c) with kernel ``sig``.
 
     Operand shapes may be any size; the grid is derived with ceil-div and
@@ -233,14 +335,18 @@ def gemm_region(sig: KernelSig, a, b, c=None, *, alpha=1.0, beta=0.0,
     paper's C/Z BLAS entries are not training paths) and raise when
     autograd would record them, on any device.  ``a`` and ``b`` are in
     ``sig.dtype`` (``plan.execute`` promotes them); a ``c`` of any dtype
-    enters in :func:`c_dtype` and the result is in ``sig.dtype``."""
+    enters in :func:`c_dtype` and the result is in ``sig.dtype``.
+    ``slices`` cuts K for the real kernel (``plan.k_slices``; the plain
+    version on the CPU computes the same sum and ignores it)."""
     if c is not None:
-        c = c.to(c_dtype(sig))
-    if sig.complex_ and records_grad(a, b, c):
+        c = c.to(_sig_types(sig)[1])
+    grad = records_grad(a, b, c)
+    if grad and sig.complex_:
         raise RuntimeError(
             f"{sig.name}: complex IAAT regions are forward-only (no "
             "backward, as in the reference); call under torch.no_grad() "
             "or detach the operands")
-    if records_grad(a, b, c):
-        return _RegionGemm.apply(sig, float(alpha), float(beta), a, b, c)
-    return _forward(sig, a, b, c, alpha, beta, out)
+    if grad:
+        return _RegionGemm.apply(sig, float(alpha), float(beta), slices, a,
+                                 b, c)
+    return _forward(sig, a, b, c, alpha, beta, out, slices)

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import cost, kernelgen, vmem
+from repro_torch.core import plan as plan_mod
 from repro_torch.core.kernelgen import KernelSig
 from repro_torch.tune import classes as classes_mod
 from repro_torch.tune.classes import SizeClass
@@ -108,7 +109,11 @@ def tune_class(sc: SizeClass, *, top: int = 4, warmup: int = 1,
     best_sig: Optional[KernelSig] = None
     best: Optional[Measurement] = None
     for sig in candidates(sc.letter, sc.trans, M, N, K, top=top):
-        m = try_measure(lambda: iaat_gemm.gemm_region(sig, a, b),
+        # the K slices the tuned plan will run this signature with
+        slices = plan_mod.build_plan(M, N, K, sc.letter, sc.trans,
+                                     override=sig).regions[0].slices
+        m = try_measure(lambda: iaat_gemm.gemm_region(sig, a, b,
+                                                      slices=slices),
                         what=f"{sc.key} {sig.name}", device=device,
                         warmup=warmup, reps=reps)
         if m is not None and (best is None or m.median_us < best.median_us):

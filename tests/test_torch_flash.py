@@ -7,9 +7,13 @@ its plain version.  Tolerances are the reference's
 (``tests/test_kernels_other.py:25,41,53``): 2e-5 for its fixed cases,
 3e-5 for its shape sweep, all in f32.  In bf16 both sides take f32 sums
 of the same exact products and round once, so they differ by at most one
-bf16 step (2^-7 relative).  The CUDA kernel itself is held against the
-plain version on the card by ``chip_smoke.py``.
+bf16 step (2^-7 relative).  The CUDA kernels themselves are held against
+the plain version on the card by ``chip_smoke.py``; the tensor-core
+kernel's arithmetic (bf16 products, f32 sums, P split into bf16 terms) is
+emulated here in plain torch and held to the card's bf16 tolerance.
 """
+import itertools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -154,3 +158,125 @@ def test_full_attn_routes_by_policy(monkeypatch, backend, kernel):
     L._full_attn(q, k, v, api.named_policy(backend), causal=True,
                  window=None, q_offset=0, scale=0.25)
     assert calls == ["flash_attention" if kernel else "chunked_mha"]
+
+
+# --------------------------------------------------------------------------
+# The tensor-core kernel's arithmetic (csrc/flash_attention.cu,
+# flash_attention_tc_kernel), emulated in plain torch on the CPU.
+# --------------------------------------------------------------------------
+
+#: keys per KV tile of the tensor-core kernel
+TC_BKV = 64
+
+
+def _split_terms(p, terms):
+    """p (f32) as ``terms`` bf16 values, each the bf16 rounding of what the
+    earlier ones leave: the A fragments the kernel feeds P V with."""
+    out, rest = [], p
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16).float()
+        out.append(t)
+        rest = rest - t
+    return out
+
+
+def _tc_emulation(q, k, v, *, causal, window=None, q_offset=0, terms=3):
+    """The kernel's arithmetic: q k products of bf16 values (exact in f32)
+    summed in f32, scaled, masked to NEG_INF, an online softmax over KV
+    tiles of 64 keys with f32 max, p and sum, P split into ``terms`` bf16
+    terms, each multiplied by bf16 V with f32 sums, and acc / max(l,
+    1e-37) cast once to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    qf = q.float()
+    kf = k.float().repeat_interleave(rep, 1)
+    vf = v.float().repeat_interleave(rep, 1)
+    qi = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, Hq, Sq), fa.NEG_INF)
+    l = torch.zeros(B, Hq, Sq)
+    acc = torch.zeros(B, Hq, Sq, D)
+    for k0 in range(0, Sk, TC_BKV):
+        kb, vb = kf[:, :, k0:k0 + TC_BKV], vf[:, :, k0:k0 + TC_BKV]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * D ** -0.5
+        ki = k0 + torch.arange(kb.shape[2])[None, :]
+        ok = ki < Sk
+        if causal:
+            ok = ok & (ki <= qi)
+        if window is not None:
+            ok = ok & (ki > qi - window)
+        s = torch.where(ok, s, torch.tensor(fa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), torch.tensor(0.))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = sum(torch.einsum("bhqk,bhkd->bhqd", t, vb)
+                 for t in _split_terms(p, terms))
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-37)[..., None]).to(q.dtype)
+
+
+def _one_step_misses(got, want):
+    """Outputs past chip_smoke.py's bf16 check: one bf16 step of the larger
+    of the two values, plus 1e-6."""
+    g, w = got.double(), want.double()
+    lim = BF16_STEP * torch.maximum(g.abs(), w.abs()) + 1e-6
+    return int(((g - w).abs() > lim).sum())
+
+
+def _tc_cases(D):
+    """The flash check's grid at one head dim (B 1, GQA 8/2), its decode
+    query and its query with no valid key."""
+    for S, causal, window in itertools.product((1, 23, 80, 300),
+                                               (True, False),
+                                               (None, 24, 512)):
+        yield (1, 8, 2, S, S, D), dict(causal=causal, window=window)
+    yield (3, 16, 16, 1, 64, D), dict(causal=True, q_offset=63)
+    yield (1, 4, 1, 1, 64, D), dict(causal=True, q_offset=200, window=24)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_tc_kernel_arithmetic_within_one_bf16_step(D):
+    """P split into three bf16 terms (p exactly) holds the card's bf16
+    tolerance against the plain version over the check's grid."""
+    for i, (shape, kw) in enumerate(_tc_cases(D)):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(100 + i, *shape))
+        got = _tc_emulation(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        assert torch.isfinite(got).all()
+        assert _one_step_misses(got, want) == 0, (shape, kw)
+
+
+def test_two_term_p_split_misses_the_tolerance():
+    """Why three terms: with P_hi + P_lo, p is kept to ~2^-17, and on
+    outputs near 0 (where the P V sum cancels) that error passes the
+    1e-6 floor of the bf16 check."""
+    misses = 0
+    for i, (shape, kw) in enumerate(_tc_cases(128)):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(100 + i, *shape))
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        misses += _one_step_misses(_tc_emulation(q, k, v, terms=2, **kw),
+                                   want)
+    assert misses > 0
+
+
+def test_p_split_terms_add_up_to_p():
+    rng = np.random.RandomState(15)
+    p = torch.from_numpy(np.exp(-20 * rng.rand(4096)).astype(np.float32))
+    hi, mid, lo = _split_terms(p, 3)
+    assert torch.equal(hi + mid + lo, p)
+    assert all(torch.equal(t, t.to(torch.bfloat16).float())
+               for t in (hi, mid, lo))
+
+
+def test_kernel_choice_is_by_type():
+    """bf16 at D 64/128/256 runs the tensor-core kernel; f32 and the
+    small head dims the CUDA-core one (f32 never becomes TF32)."""
+    for D in fa.HEAD_DIMS:
+        tc = fa.kernel_for(torch.bfloat16, D)
+        assert tc == ("flash_attention_tc" if D in (64, 128, 256)
+                      else "flash_attention")
+        assert fa.kernel_for(torch.float32, D) == "flash_attention"
