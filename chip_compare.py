@@ -13,7 +13,12 @@ of the kernel):
   D 128, bf16, causal) and at B 1 x 16 x S 2048 x D 128;
 * one olmo-1b decode step's routed GEMMs at M = 4 under the forced
   kernel (per layer q, k, v, o, gate, up, down on their own weights, then
-  the tied unembed: 113 ``api.matmul`` calls, 2.3 GB of weights).
+  the tied unembed: 113 ``api.matmul`` calls, 2.3 GB of weights);
+* the grouped kernels at moonshot-v1-16b-a3b's decode shapes, bf16:
+  ``batched_gemm`` on 64 experts x C 8 for gate/up (K 2048, N 1408) and
+  down (K 1408, N 2048), and ``ragged_gemm`` (the wrapper's launch alone)
+  on the dropless layout of 4 tokens x top-6 in row tiles of 8, each with
+  its library call beside it (``torch.bmm``, ``torch._grouped_mm``).
 
 Prints one line per run and the card's name and power limit, and writes
 the runs to ``--out`` (default ``chiprun_out/chip_compare.json``).  Exits
@@ -52,16 +57,26 @@ def loop_ms(fn, n, warm=3):
 
 
 def device_ms(fn, n, match):
+    """Device ms a call of fn's kernels whose name holds match, from a
+    torch.profiler trace of n calls; a trace that comes back without
+    device events is taken again (three tries, then None)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match in e.key and str(e.device_type).endswith("CUDA"))
-    return us / 1e3 / n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if match in e.key and str(e.device_type).endswith("CUDA"))
+        if us > 0:
+            return us / 1e3 / n
+    return None
+
+
+def both(fn, match, n=20):
+    return {"loop_ms": loop_ms(fn, n), "device_ms": device_ms(fn, 10, match)}
 
 
 out = {}
@@ -98,6 +113,40 @@ def step():
 out["olmo-1b decode step GEMMs, M 4"] = {
     "loop_ms": loop_ms(step, 3, 1),
     "device_ms": device_ms(step, 1, "iaat_gemm_kernel")}
+del calls
+
+from repro_torch.kernels import grouped_gemm as gg
+# moonshot-v1-16b-a3b decode: 64 experts, capacity 8 rows for 4 slots x
+# top-6, d_model 2048, d_expert 1408; the ragged rows of the same 4
+# tokens, each expert's rows padded to one tile of 8
+E, C, top_k = 64, 8, 6
+gen = torch.Generator().manual_seed(5)
+counts = [0] * E
+for _ in range(4):
+    for e in torch.randperm(E, generator=gen)[:top_k].tolist():
+        counts[e] += 1
+ids = torch.tensor([e for e, c in enumerate(counts) if c], dtype=torch.int32,
+                   device="cuda")
+T = 8 * ids.numel()
+for (K, N) in ((2048, 1408), (1408, 2048)):
+    x = torch.randn((E, C, K), generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g, device="cuda") /
+         math.sqrt(K)).to(torch.bfloat16)
+    xr = torch.randn((T, K), generator=g, device="cuda").to(torch.bfloat16)
+    offs = (torch.bincount(ids.long(), minlength=E).cumsum(0) * 8).to(
+        torch.int32)
+    blocks = gg.pick_blocks(C, K, N, torch.bfloat16)
+    rblocks = gg.pick_blocks(8, K, N, torch.bfloat16)
+    out[f"batched_gemm 64 x 8 K{K} N{N}"] = both(
+        lambda: gg.batched_gemm(x, w, blocks=blocks), "gemm_kernel")
+    out[f"torch.bmm 64 x 8 K{K} N{N}"] = both(lambda: torch.bmm(x, w), "")
+    out[f"ragged_gemm {T} rows K{K} N{N}"] = both(
+        lambda: gg._launch_ragged(xr, w, ids, 8, rblocks), "gemm_kernel")
+    try:
+        out[f"torch._grouped_mm {T} rows K{K} N{N}"] = both(
+            lambda: torch._grouped_mm(xr, w, offs=offs), "")
+    except RuntimeError as e:      # a yardstick, not a check: say why
+        out[f"torch._grouped_mm {T} rows K{K} N{N}"] = str(e)[:200]
 print("RESULT " + json.dumps(out))
 '''
 

@@ -8,10 +8,12 @@ fails the run:
 
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
 2. build  — compiles every instance of the kernel table, for the IAAT
-            GEMM (three load paths) and the two grouped kernels (S/D/H),
-            the complex Karatsuba kernel (C/Z), and the flash attention
-            instances (ptxas must report all; cuobjdump's SASS of the
-            tensor-core flash instances must hold HGMMA);
+            GEMM (three load paths) and the grouped kernels (S/D/H, two
+            load paths), the complex Karatsuba kernel (C/Z), and the flash
+            attention instances (ptxas must report all; cuobjdump's SASS of
+            the tensor-core flash instances must hold HGMMA, that of the
+            bf16 grouped ring instances HMMA.16816.F32.BF16, and that of
+            the S, D and bf16 scalar grouped instances no HMMA);
 3. check  — the CUDA IAAT kernel against its plain PyTorch version, on
             the card, for S/H/D x NN/NT/TN/TT, K tails, M/N overhangs,
             alpha/beta with and without C, and olmo-1b's main-path shapes;
@@ -33,20 +35,27 @@ fails the run:
             compared;
 6. grouped check — the CUDA batched and ragged grouped kernels against
             their plain versions for S/H/D: G in {1, 3, 64}, C in
-            {1, 8, 30}, K tails (70) and N overhangs (1408), ragged with
-            empty groups and row tiles of 8 (under the 16-row grain), 16
-            and 128, every table instance once, and moonshot's decode
-            shapes;
+            {1, 8, 9, 16, 30}, K tails (70, 136) and N overhangs (1408,
+            320), ragged with empty groups and row tiles of 8 (under the
+            16-row grain), 16 and 128, every table instance on both load
+            paths, unaligned and strided views, and moonshot's decode
+            shapes; every launch's path (cp.async ring or scalar), K split
+            and bf16 mma asserted from the per-path counts, each of the
+            four taken at least once, and the decode shapes on the mma
+            ring (one token's ragged layout also split);
 7. moe serve — olmo's weights freed, moonshot-v1-16b-a3b at full width
             and full depth (48 layers, 64 experts top-6, bf16, 56 GB of
             random weights) serves 5 requests (after an uncounted warm-up)
             under ``auto`` and under the forced kernel; both the grouped
-            and the IAAT kernel's launch counts must be > 0 under both;
+            and the IAAT kernel's launch counts must be > 0 under both,
+            and every expert GEMM a batched launch on the mma ring;
 8. moe step — one full-width decode step, kernel against the plain
             arithmetic, logits compared, and the share of (token, layer)
             expert choices the two runs agree on;
 9. kernels — times at the main-path shapes (olmo's 2-D GEMMs, moonshot's
-            grouped ones), printed as the ``kernels`` JSON line; for one
+            grouped ones: loop and torch.profiler device times of kernel,
+            plain and library, and the ragged kernel over a sweep of
+            grids and K slices), printed as the ``kernels`` JSON line; for one
             olmo-1b decode step's GEMMs also the step's loop time, its
             torch.profiler device time and a CUDA-graph replay;
 10. flash check — the CUDA flash attention kernels (bf16 at D 64/128/256
@@ -115,6 +124,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -166,19 +176,22 @@ def phase_build():
     ptx = (lib.parent / "ptxas.log").read_text()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ptxas.log").write_text(ptx)   # registers, spills per kernel
+    job_s = json.loads((lib.parent / "build_seconds.json").read_text())
+    log("build: nvcc jobs' wall seconds, slowest first: " + ", ".join(
+        f"{k} {v}" for k, v in sorted(job_s.items(), key=lambda kv: -kv[1])))
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", ptx)]
     spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", ptx))
     per = {name: len(re.findall(rf"Compiling entry function '\w*{name}",
                                 ptx))
-           for name in ("iaat_gemm_kernel", "batched_gemm_kernel",
-                        "ragged_gemm_kernel", "cx_gemm_kernel",
+           for name in ("iaat_gemm_kernel", "grouped_gemm_kernel",
+                        "cx_gemm_kernel",
                         "flash_attention_kernel", "flash_attention_tc_kernel",
                         "ssd_scan_kernel")}
     real = sum(1 for i in kernelgen.instances()
                if i[0] in kernelgen.KERNEL_LETTERS)
     cx = n - real
     log(f"build: {real} real instances x ({len(build.IAAT_PATHS)} IAAT "
-        f"paths + {len(build.SOURCES) - 1} grouped source) + "
+        f"paths + {len(build.GROUPED_PATHS)} grouped paths) + "
         f"{cx} complex x {len(build.SOURCES_CX)} + "
         f"{len(build.SOURCES_ONCE)} once in "
         f"{time.perf_counter() - t0:.1f}s, {len(regs)} kernels "
@@ -209,8 +222,9 @@ def phase_build():
     n_tc = len(flash_attention.TC_HEAD_DIMS)
     want_flash = 2 * len(flash_attention.HEAD_DIMS) - n_tc
     want_ssd = 2 * len(ssd.CHUNKS)
-    want = {"iaat_gemm_kernel": 3 * real, "batched_gemm_kernel": real,
-            "ragged_gemm_kernel": real, "cx_gemm_kernel": cx,
+    want = {"iaat_gemm_kernel": len(build.IAAT_PATHS) * real,
+            "grouped_gemm_kernel": len(build.GROUPED_PATHS) * real,
+            "cx_gemm_kernel": cx,
             "flash_attention_kernel": want_flash,
             "flash_attention_tc_kernel": n_tc,
             "ssd_scan_kernel": want_ssd}
@@ -219,6 +233,23 @@ def phase_build():
         raise RuntimeError("ptxas reported another kernel count than the "
                            f"table's {want}: {per}")
     hgmma, hgmma_line = flash_sass(lib.parent / "flash_attention.o", n_tc)
+    hmma, hmma_line = grouped_sass(lib.parent, real)
+    # the grouped instances: registers and spills per path and letter
+    gr = {}
+    for e in ptx.split("Compiling entry function")[1:]:
+        name = e.split("'")[1]
+        if "grouped_gemm_kernel" not in name:
+            continue
+        # the mangled template arguments: type, BM, BN, BK, path
+        m = re.search(r"grouped_gemm_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi([01])E", name)
+        dt = {"f": "S", "d": "D"}.get(m.group(1), "H")
+        mode = build.GROUPED_PATHS[int(m.group(5))]
+        r = int(re.search(r"Used (\d+) registers", e).group(1))
+        sp = int(re.search(r"(\d+) bytes spill stores", e).group(1))
+        gr[f"{dt} {mode} {m.group(2)}x{m.group(3)}x{m.group(4)}"] = (r, sp)
+    log("build: grouped_gemm instances (registers/spill bytes): "
+        + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(gr.items())))
     # the complex instances: registers and spills, from the ptxas report
     cxr = [(int(re.search(r"Used (\d+) registers", e).group(1)),
             int(re.search(r"(\d+) bytes spill stores", e).group(1)))
@@ -235,7 +266,8 @@ def phase_build():
         f"{max(r for r, _ in ssdr)} registers, "
         f"{sum(sp for _, sp in ssdr)} bytes of spill stores in all")
     return {"flash_instances": flash, "hgmma": hgmma,
-            "hgmma_line": hgmma_line}
+            "hgmma_line": hgmma_line, "grouped_hmma": hmma,
+            "grouped_hmma_line": hmma_line, "grouped_registers": gr}
 
 
 def flash_sass(obj, n_tc):
@@ -261,6 +293,74 @@ def flash_sass(obj, n_tc):
         f"{json.dumps(counts)}; e.g. {line}")
     if len(tc) != n_tc or not all(tc.values()) or any(other.values()):
         raise AssertionError(f"flash SASS: HGMMA counts {counts}")
+    return counts, line
+
+
+def grouped_sass(build_dir, real):
+    """``cuobjdump -sass`` of the grouped objects, one per letter and
+    path: every function of the H ring object must hold
+    HMMA.16816.F32.BF16 (mma.sync m16n8k16 on bf16), and no function of
+    the S and D objects (f32 and f64 FMAs, so S never runs as TF32) or of
+    the H scalar object may hold any HMMA.  The HMMA count per object and
+    one HMMA line are logged, the counts per function in
+    chiprun_out/grouped_sass.txt."""
+    import re
+    import shutil
+    from repro_torch.core import kernelgen
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts, line, fns, kept = {}, None, 0, []
+    # the six disassemblies run side by side, each into a file of its own
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=build_dir))
+    procs = {}
+    for letter in kernelgen.KERNEL_LETTERS:
+        for path in build.GROUPED_PATHS:
+            name = f"grouped_gemm_{letter}_{path}"
+            with open(tmp / f"{name}.sass", "w") as out:
+                procs[(letter, path)] = subprocess.Popen(
+                    [tool, "-sass", str(build_dir / f"{name}.o")],
+                    stdout=out, stderr=subprocess.STDOUT)
+    try:
+        for proc in procs.values():
+            proc.wait(timeout=300)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for (letter, path), proc in procs.items():
+        sass = (tmp / f"grouped_gemm_{letter}_{path}.sass").read_text()
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump grouped_gemm_{letter}_{path}.o: "
+                               f"{sass[-2000:]}")
+        per = []
+        for fn in sass.split("Function : ")[1:]:
+            hm = [ln for ln in fn.splitlines() if "HMMA" in ln]
+            want = [ln for ln in hm if "HMMA.16816.F32.BF16" in ln]
+            per.append((len(hm), len(want)))
+            kept.append(f"{letter} {path} {fn.split(chr(10), 1)[0]}: "
+                        f"{len(hm)} HMMA, {len(want)} "
+                        "HMMA.16816.F32.BF16")
+            if want and line is None:
+                line = re.sub(r"\s+", " ", want[0]).strip()
+        fns += len(per)
+        counts[f"{letter} {path}"] = [sum(h for h, _ in per),
+                                      min((w for _, w in per),
+                                          default=0)]
+        tc = letter == "H" and path == "ring"
+        if not per or (tc and not all(w for _, w in per)) or \
+                (not tc and any(h for h, _ in per)):
+            raise AssertionError(f"grouped SASS {letter} {path}: (HMMA, "
+                                 f"HMMA.16816.F32.BF16) per function "
+                                 f"{per}")
+    shutil.rmtree(tmp)
+    if fns != len(build.GROUPED_PATHS) * real:
+        raise AssertionError(f"grouped SASS: {fns} functions, want "
+                             f"{len(build.GROUPED_PATHS) * real}")
+    (OUT_DIR / "grouped_sass.txt").write_text("\n".join(kept) + "\n")
+    log("build: cuobjdump -sass grouped_gemm_<letter>_<path>.o: [HMMA in "
+        "all, fewest HMMA.16816.F32.BF16 in one function] "
+        f"{json.dumps(counts)}; e.g. {line}")
     return counts, line
 
 
@@ -487,7 +587,10 @@ def _counts():
             "iaat_split": iaat_gemm.path_count("split"),
             "flash_tc": flash_attention.launch_count("flash_attention_tc"),
             "flash_cuda_core": flash_attention.launch_count(
-                "flash_attention")}
+                "flash_attention"),
+            # both grouped kernels by path
+            **{f"grouped_{p}": grouped_gemm.path_count(p)
+               for p in ("ring", "scalar", "split", "mma")}}
 
 
 def phase_serve(torch, arch, cfg, requests, max_new, kernels):
@@ -527,6 +630,12 @@ def phase_serve(torch, arch, cfg, requests, max_new, kernels):
                 launches["iaat_ring"] != launches["iaat_gemm"]:
             raise AssertionError(f"{arch} {backend}: IAAT launches off the "
                                  f"ring path: {launches}")
+        # and every expert GEMM is a batched launch on the mma ring
+        if "batched_gemm" in kernels and (
+                launches["ragged_gemm"] or launches["grouped_scalar"] or
+                launches["grouped_mma"] != launches["batched_gemm"]):
+            raise AssertionError(f"{arch} {backend}: expert GEMMs off the "
+                                 f"mma ring: {launches}")
         per_tok = {k: launches[k] / r["tokens"] for k in kernels}
         runs[backend] = {"tokens": r["tokens"], "seconds": r["seconds"],
                          "tok_s": r["tok_s"],
@@ -674,28 +783,32 @@ def _device_ms(torch, fn, reps, match=None):
     """Device time per call of ``fn`` from a torch.profiler trace of
     ``reps`` calls: the time of the trace's device kernels (those whose
     name holds ``match``, when given), summed, over ``reps``, and the
-    count of such kernel launches; (None, 0) if the trace holds no device
-    time."""
+    count of such kernel launches; (None, 0) if three traces hold no
+    device time (a trace now and then comes back without its device
+    events when many are taken in one process)."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA") or (
-                match is not None and match not in e.key):
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            us += t
-            n += e.count
-    return (us / 1e3 / reps if n else None), n
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA") or (
+                    match is not None and match not in e.key):
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0:
+                us += t
+                n += e.count
+        if n:
+            return us / 1e3 / reps, n
+    return None, 0
 
 
 def phase_kernels(torch, cfg, launches, max_abs_err):
@@ -874,25 +987,52 @@ def _ragged_operands(torch, g, counts, bm, K, N, dt, empty_tile, G=None):
 
 
 def phase_grouped_check(torch, mcfg):
-    """The batched and ragged kernels against their plain versions.
-    Returns the max abs errors at the MoE decode shapes and the ragged
-    kernel's launches here (no model calls it)."""
+    """The batched and ragged kernels against their plain versions, for
+    S/H/D, each launch's path and split asserted from the per-path counts
+    against what ``grouped_gemm.launch_plan`` reads from the strides and
+    the grid: G in {1, 3, 64} x C in {1, 8, 9, 16, 30} x K in {70, 1408}
+    (K 70 is off the ring for S and H), ragged row tiles of 8, 16 and 128
+    with empty groups, every table instance on both paths (K tails, N
+    overhangs, a split at bk 32), unaligned and strided views; the ring,
+    scalar, split and mma paths must each have launched.  Then moonshot's
+    decode shapes, which must take mma on the ring, and one token's
+    ragged layout, which must also split K.  Returns the max abs errors at the MoE decode shapes
+    and the ragged kernel's launches here (no model calls it)."""
     from repro_torch.core import kernelgen
     from repro_torch.kernels import grouped_gemm as gg
     _reset_counts()
     g = torch.Generator(device="cuda").manual_seed(4)
     dts = {"S": torch.float32, "D": torch.float64, "H": torch.bfloat16}
-    worst = {}
+    paths = ("ring", "scalar", "split", "mma")
+    worst, seen = {}, {}
 
-    def check(name, letter, got, want, what):
+    def run(name, letter, x, w, blocks, what, ids=None, tile=None):
+        """One launch against its plain version; returns (abs err, path,
+        slices)."""
+        path, slices = gg.launch_plan(x, w, blocks, tile)
+        before = [gg.path_count(p) for p in paths]
+        if ids is None:
+            got, want = gg.batched_gemm(x, w, blocks=blocks), \
+                gg.batched_gemm_plain(x, w)
+        else:
+            got, want = gg.ragged_gemm(x, w, ids, bm=tile, blocks=blocks), \
+                gg.ragged_gemm_plain(x, w, ids, tile)
         torch.cuda.synchronize()
+        ran = {p: gg.path_count(p) - b for p, b in zip(paths, before)}
+        expect = {"ring": int(path == "ring"), "scalar": int(path == "scalar"),
+                  "split": int(slices > 1),
+                  "mma": int(path == "ring" and letter == "H")}
+        if ran != expect:
+            raise AssertionError(f"{name} {letter} {what}: launched {ran}, "
+                                 f"want {expect} ({path}, {slices} slices)")
         ab, rel = _rel_err(got, want)
-        key = f"{name} {letter}"
+        key = f"{name} {letter} {path}"
         worst[key] = max(worst.get(key, 0.0), rel)
+        seen[key] = seen.get(key, 0) + 1
         if not rel <= TOL[letter]:
-            raise AssertionError(f"{name} {letter} {what}: rel err {rel} > "
-                                 f"{TOL[letter]}")
-        return ab
+            raise AssertionError(f"{name} {letter} {what} ({path}, {slices} "
+                                 f"slices): rel err {rel} > {TOL[letter]}")
+        return ab, path, slices
 
     def batched_operands(G, C, K, N, dt):
         x = torch.randn((G, C, K), generator=g, device="cuda").to(dt)
@@ -900,53 +1040,86 @@ def phase_grouped_check(torch, mcfg):
         return x, (w / math.sqrt(K)).to(dt)
 
     for letter, dt in dts.items():
-        for G, C, K in itertools.product((1, 3, 64), (1, 8, 30),
+        for G, C, K in itertools.product((1, 3, 64), (1, 8, 9, 16, 30),
                                          (70, 1408)):
             x, w = batched_operands(G, C, K, 1408, dt)
-            check("batched", letter, gg.batched_gemm(x, w),
-                  gg.batched_gemm_plain(x, w), f"G={G} C={C} K={K} N=1408")
+            run("batched", letter, x, w, gg.pick_blocks(C, K, 1408, dt),
+                f"G={G} C={C} K={K} N=1408")
         for bm, K in itertools.product((8, 16, 128), (70, 1408)):
             # groups 0 and 3 empty (one zero tile), 6 and 7 with no tile
             x, w, ids = _ragged_operands(torch, g, [0, 5, 17, 0, 40, 3], bm,
                                          K, 1408, dt, empty_tile=True, G=8)
-            check("ragged", letter, gg.ragged_gemm(x, w, ids, bm=bm),
-                  gg.ragged_gemm_plain(x, w, ids, bm),
-                  f"tile {bm} K={K} N=1408")
+            run("ragged", letter, x, w, gg.pick_blocks(bm, K, 1408, dt),
+                f"tile {bm} K={K} N=1408", ids, bm)
         for (lt, bm, bn, bk) in kernelgen.instances():
             if lt != letter:
                 continue
-            x, w = batched_operands(3, 30, 70, 300, dt)
-            check("batched", letter,
-                  gg.batched_gemm(x, w, blocks=(bm, bn, bk)),
-                  gg.batched_gemm_plain(x, w), f"instance {bm}x{bn}x{bk}")
-            x, w, ids = _ragged_operands(torch, g, [0, 5, 17], 8, 70, 300,
-                                         dt, empty_tile=True)
-            check("ragged", letter,
-                  gg.ragged_gemm(x, w, ids, bm=8, blocks=(bm, bn, bk)),
-                  gg.ragged_gemm_plain(x, w, ids, 8),
-                  f"instance {bm}x{bn}x{bk}")
+            # K 70 (scalar for S and H) and K 136 (a tail on the ring,
+            # split at bk 32), N 320 (an overhang of every bn)
+            for K in (70, 136):
+                x, w = batched_operands(3, 30, K, 320, dt)
+                run("batched", letter, x, w, (bm, bn, bk),
+                    f"instance {bm}x{bn}x{bk} K={K}")
+                x, w, ids = _ragged_operands(torch, g, [0, 5, 17], 8, K, 320,
+                                             dt, empty_tile=True)
+                run("ragged", letter, x, w, (bm, bn, bk),
+                    f"instance {bm}x{bn}x{bk} K={K}", ids, 8)
+        # unaligned and strided views: every other column of x and of w,
+        # and x one element off its aligned start
+        x, w = batched_operands(3, 9, 2 * 1408, 2 * 1408, dt)
+        run("batched", letter, x[:, :, ::2], w[::1, ::2, 1::2],
+            gg.pick_blocks(9, 1408, 1408, dt), "strided views")
+        x, w = batched_operands(3, 9, 1409, 1408, dt)
+        run("batched", letter, x[:, :, 1:], w[:, 1:],
+            gg.pick_blocks(9, 1408, 1408, dt), "x one element off")
+        xr, wr, ids = _ragged_operands(torch, g, [3, 0, 9], 8, 2 * 1408,
+                                       1408, dt, empty_tile=True)
+        run("ragged", letter, xr[:, ::2], wr[:, ::2],
+            gg.pick_blocks(8, 1408, 1408, dt), "strided x rows", ids, 8)
+    missing = [p for p in paths if not gg.path_count(p)]
+    if missing:
+        raise AssertionError(f"grouped check: no launch on {missing}")
     main = {"batched_gemm": 0.0, "ragged_gemm": 0.0}
     E = mcfg.moe.num_experts
     C = _decode_capacity(mcfg)
     counts = _decode_counts(torch, mcfg)
+    one = _decode_counts(torch, mcfg, tokens=1)
     for (K, N) in _grouped_decode_shapes(mcfg):
-        x, w = batched_operands(E, C, K, N, torch.bfloat16)
-        ab = check("batched", "H", gg.batched_gemm(x, w),
-                   gg.batched_gemm_plain(x, w), f"decode {E}x{C}x{K}x{N}")
+        bf = torch.bfloat16
+        x, w = batched_operands(E, C, K, N, bf)
+        ab, path, slices = run("batched", "H", x, w,
+                               gg.pick_blocks(C, K, N, bf),
+                               f"decode {E}x{C}x{K}x{N}")
         main["batched_gemm"] = max(main["batched_gemm"], ab)
-        x, w, ids = _ragged_operands(torch, g, counts, 8, K, N,
-                                     torch.bfloat16, empty_tile=False)
-        ab = check("ragged", "H", gg.ragged_gemm(x, w, ids, bm=8),
-                   gg.ragged_gemm_plain(x, w, ids, 8),
-                   f"decode T={x.shape[0]} K={K} N={N}")
+        xr, wr, ids = _ragged_operands(torch, g, counts, 8, K, N, bf,
+                                       empty_tile=False)
+        ab, rpath, rslices = run("ragged", "H", xr, wr,
+                                 gg.pick_blocks(8, K, N, bf),
+                                 f"decode T={xr.shape[0]} K={K} N={N}", ids,
+                                 8)
         main["ragged_gemm"] = max(main["ragged_gemm"], ab)
-        log(f"check grouped decode K={K} N={N}: batched ({E}, {C}) max abs "
-            f"err {main['batched_gemm']:.4g}, ragged {x.shape[0]} rows in "
-            f"{ids.numel()} tiles of 8 max abs err {main['ragged_gemm']:.4g}")
+        # one token's dropless layout: 6 tiles, a grid that splits
+        x1, w1, ids1 = _ragged_operands(torch, g, one, 8, K, N, bf,
+                                        empty_tile=False)
+        _, path1, slices1 = run("ragged", "H", x1, w1,
+                                gg.pick_blocks(8, K, N, bf),
+                                f"decode 1 token K={K} N={N}", ids1, 8)
+        if path != "ring" or rpath != "ring" or path1 != "ring" or \
+                slices1 < 2:
+            raise AssertionError(f"decode K={K} N={N}: batched {path}, "
+                                 f"ragged {rpath}, one token {path1} x "
+                                 f"{slices1} slices")
+        log(f"check grouped decode K={K} N={N}: batched ({E}, {C}) on the "
+            f"mma ring, {slices} slice(s), max abs err "
+            f"{main['batched_gemm']:.4g}; ragged {xr.shape[0]} rows in "
+            f"{ids.numel()} tiles of 8 on the mma ring, {rslices} "
+            f"slice(s), max abs err {main['ragged_gemm']:.4g}; one token's "
+            f"{ids1.numel()} tiles on the mma ring in {slices1} slices")
     launches = _counts()
-    log("check grouped: worst rel err (tol S 1e-5, H 8e-3, D 1e-12): "
+    log("check grouped: worst rel err by kernel, letter and path (tol S "
+        "1e-5, H 8e-3, D 1e-12): "
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()})
-        + f"; launches {json.dumps(launches)}")
+        + f"; cases {json.dumps(seen)}; launches {json.dumps(launches)}")
     return main, launches["ragged_gemm"]
 
 
@@ -970,15 +1143,46 @@ def _grouped_mm_library(torch, x, w, ids, bm):
     return (lambda: torch._grouped_mm(x, w, offs=offs)), out
 
 
+def _split_sweep(torch, g, w, K, N, blocks, reps=20):
+    """Device time (us) of the ragged kernel on row tiles of 8 over w
+    (G, K, N), at 1..20 tiles (one token's layout is 6, four tokens' 20)
+    and 1, 2, 4 and 8 K slices whatever the rule says: what the grouped
+    split rule (plan.grouped_slices) is read from.  Logged as a table;
+    returns {tiles: {"rule": slices, slices: us}}."""
+    from repro_torch.kernels import grouped_gemm as gg
+    out = {}
+    for tiles in (1, 4, 6, 8, 11, 16, 20):
+        x = torch.randn((8 * tiles, K), generator=g, device="cuda").to(
+            w.dtype)
+        ids = (torch.arange(tiles, device="cuda", dtype=torch.int32) * 3) \
+            % w.shape[0]
+        res = {"rule": gg.launch_plan(x, w, blocks, tile=8)[1]}
+        for sl in (1, 2, 4, 8):
+            ms, _ = _device_ms(torch, lambda i: gg._launch_ragged(
+                x, w, ids, 8, blocks, slices=sl), reps, "grouped_gemm_kernel")
+            res[sl] = None if ms is None else round(ms * 1e3, 2)
+        out[tiles] = res
+    gn = -(-N // blocks[1])
+    log(f"split sweep ragged_gemm H K={K} N={N} {blocks}: device us at "
+        f"1/2/4/8 slices [rule] by tiles of 8 (x {gn} blocks): "
+        + "; ".join(f"{t}: {r[1]}/{r[2]}/{r[4]}/{r[8]} [{r['rule']}]"
+                    for t, r in out.items()))
+    return out
+
+
 def phase_grouped_kernels(torch, mcfg, launches, errs):
     """Kernel / plain / library times and the bound of the grouped kernels
     at the MoE decode shapes (one batched call reads all experts' weights,
-    >= 369 MB, over 7 x the 50 MB L2, so every call reads from HBM).  The
-    line's numbers are one decode step's expert GEMMs (layers x gate, up,
-    down), summed: as equal-capacity groups for batched_gemm, as the
-    dropless ragged layout of the same 4 tokens for ragged_gemm.  The
-    library calls are torch.bmm and torch._grouped_mm; the latter's
-    output is first held against the plain version."""
+    >= 369 MB, over 7 x the 50 MB L2, so every call reads from HBM): loop
+    time (CUDA events, host launch time included) and device time
+    (torch.profiler, the calls' device kernels).  The line's numbers are
+    one decode step's expert GEMMs (layers x gate, up, down), summed: as
+    equal-capacity groups for batched_gemm, as the dropless ragged layout
+    of the same 4 tokens for ragged_gemm.  The library calls are torch.bmm
+    and torch._grouped_mm; the latter's output is first held against the
+    plain version.  The ragged call is also timed at one and two K slices
+    whatever the split rule says (what decides the rule for the down
+    projection's 160 blocks)."""
     from repro_torch.core import cost
     from repro_torch.kernels import grouped_gemm as gg
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -986,8 +1190,10 @@ def phase_grouped_kernels(torch, mcfg, launches, errs):
     E, C, L = mcfg.moe.num_experts, _decode_capacity(mcfg), mcfg.n_layers
     counts = _decode_counts(torch, mcfg)
     rows = []
-    step = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
-                "bytes": 0} for n in ("batched_gemm", "ragged_gemm")}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "plain_device_ms",
+            "library_device_ms")
+    step = {n: {**{k: 0.0 for k in keys}, "flops": 0, "bytes": 0}
+            for n in ("batched_gemm", "ragged_gemm")}
     library = {}
     for (K, N), per_layer in _grouped_decode_shapes(mcfg).items():
         x = torch.randn((E, C, K), generator=g, device="cuda").to(bf)
@@ -1013,19 +1219,15 @@ def phase_grouped_kernels(torch, mcfg, launches, errs):
             library[(K, N)] = "ok"
         # the ragged launch alone: the wrapper's id check reads the ids
         # back to the host once a call, which would idle the card here
-        times = {
-            "batched_gemm": (
-                _time_ms(torch, lambda i: gg.batched_gemm(x, w, blocks=blocks),
-                         20),
-                _time_ms(torch, lambda i: gg.batched_gemm_plain(x, w), 20),
-                _time_ms(torch, lambda i: torch.bmm(x, w), 20)),
-            "ragged_gemm": (
-                _time_ms(torch, lambda i: gg._launch_ragged(
-                    xr, wr, ids, 8, rblocks), 20),
-                _time_ms(torch, lambda i: gg.ragged_gemm_plain(xr, wr, ids,
-                                                               8), 20),
-                None if lib_call is None else
-                _time_ms(torch, lambda i: lib_call(), 20)),
+        calls = {
+            "batched_gemm": (lambda i: gg.batched_gemm(x, w, blocks=blocks),
+                             lambda i: gg.batched_gemm_plain(x, w),
+                             lambda i: torch.bmm(x, w)),
+            "ragged_gemm": (lambda i: gg._launch_ragged(xr, wr, ids, 8,
+                                                        rblocks),
+                            lambda i: gg.ragged_gemm_plain(xr, wr, ids, 8),
+                            None if lib_call is None else
+                            (lambda i: lib_call())),
         }
         work = {   # bytes: each input read once (ragged: the groups used)
             "batched_gemm": (2 * E * C * K * N,
@@ -1033,29 +1235,44 @@ def phase_grouped_kernels(torch, mcfg, launches, errs):
             "ragged_gemm": (2 * T * K * N,
                             2 * (T * K + groups * K * N + T * N)),
         }
-        for name, (t_k, t_p, t_l) in times.items():
+        for name, (f_k, f_p, f_l) in calls.items():
+            t = {"ms": _time_ms(torch, f_k, 20),
+                 "plain_ms": _time_ms(torch, f_p, 20),
+                 "library_ms": None if f_l is None else
+                 _time_ms(torch, f_l, 20),
+                 "device_ms": _device_ms(torch, f_k, 10,
+                                         "grouped_gemm_kernel")[0],
+                 "plain_device_ms": _device_ms(torch, f_p, 10)[0],
+                 "library_device_ms": None if f_l is None else
+                 _device_ms(torch, f_l, 10)[0]}
             flops, nbytes = work[name]
             b_s = max(flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW)
-            row = {"kernel": name, "K": K, "N": N, "ms": t_k,
-                   "plain_ms": t_p, "library_ms": t_l,
+            row = {"kernel": name, "K": K, "N": N, **t,
                    "bound_ms": b_s * 1e3, "flops": flops, "bytes": nbytes}
             if name == "ragged_gemm":
-                row.update(rows=T, groups=groups)
+                row.update(rows=T, groups=groups, slices=gg.launch_plan(
+                    xr, wr, rblocks, tile=8)[1],
+                    split_sweep=_split_sweep(torch, g, w, K, N, rblocks))
+            else:
+                row["slices"] = gg.launch_plan(x, w, blocks)[1]
             rows.append(row)
             log(f"kernel time {name} H K={K} N={N}"
                 + (f" ({T} rows, {groups} groups)" if name == "ragged_gemm"
                    else f" ({E} x {C} rows)")
-                + f": kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+                + f": kernel {t['ms']:.4f} ms (device {t['device_ms']} ms), "
+                + f"plain {t['plain_ms']:.4f} ms (device "
+                + f"{t['plain_device_ms']} ms), "
                 + ("library torch._grouped_mm" if name == "ragged_gemm"
                    else "library torch.bmm")
-                + (" refused" if t_l is None else f" {t_l:.4f} ms")
+                + (" refused" if t["library_ms"] is None else
+                   f" {t['library_ms']:.4f} ms (device "
+                   f"{t['library_device_ms']} ms)")
                 + f", bound {b_s * 1e3:.4f} ms")
             n = per_layer * L
             st = step[name]
-            st["ms"] += n * t_k
-            st["plain_ms"] += n * t_p
-            st["library_ms"] = None if t_l is None or st["library_ms"] is \
-                None else st["library_ms"] + n * t_l
+            for k in keys:
+                st[k] = None if t[k] is None or st[k] is None else \
+                    st[k] + n * t[k]
             st["flops"] += n * flops
             st["bytes"] += n * nbytes
     entries = []
@@ -1075,8 +1292,12 @@ def phase_grouped_kernels(torch, mcfg, launches, errs):
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": st["library_ms"],
+            "device_ms": st["device_ms"],
+            "plain_device_ms": st["plain_device_ms"],
+            "library_device_ms": st["library_device_ms"],
             "at": f"one {mcfg.name} decode step's expert GEMMs ({L} layers "
-                  "x gate, up, down), bf16, summed"
+                  "x gate, up, down), bf16, summed; ms the loop time, "
+                  "device_ms the profiler's"
                   + (f"; {E} groups of C={C}" if name == "batched_gemm" else
                      "; dropless ragged layout of 4 tokens x top-"
                      f"{mcfg.moe.top_k}, row tiles of 8"),

@@ -14,6 +14,7 @@ the same shapes reuses the plan.
 The run-time stage also splits K (:func:`k_slices`) for regions whose
 grid underfills the card, a quantity derived from the region's grid, K,
 its kernel's bk and the card's SM count; it stays one launch a region.
+The grouped kernels split by a rule of their own (:func:`grouped_slices`).
 """
 from __future__ import annotations
 
@@ -49,6 +50,22 @@ def k_slices(gm: int, gn: int, K: int, bk: int, resident: int) -> int:
         return 1
     return min(max(2, vmem.NUM_SMS * resident // grid),
                steps // MIN_SLICE_STEPS)
+
+
+def grouped_slices(blocks: int, K: int, bk: int) -> int:
+    """K slices of one grouped launch (``kernels/grouped_gemm.py``;
+    DESIGN_PORT.md §7): the most slices that keep its ``blocks``-block
+    grid within one block an SM (:data:`vmem.NUM_SMS`), and no more than
+    leave each slice :data:`MIN_SLICE_STEPS` steps of bk; 1 when fewer
+    than two slices fit.  One block an SM, not the resident blocks of
+    :func:`k_slices`'s wave: on the H100 a grouped block streams its
+    weights at a rate its ring's copies in flight set (about 23 GB/s at
+    (16, 256, 64) bf16, whatever the grid), so about 130 blocks fill the
+    memory, and past that a split only adds its fix-up (PERF.md §6, PR
+    18: at 96 and 120 blocks two slices were slower than one).  The
+    kernel deals the K steps out as :func:`slice_steps` does."""
+    s = min(vmem.NUM_SMS // max(blocks, 1), -(-K // bk) // MIN_SLICE_STEPS)
+    return s if s >= 2 else 1
 
 
 def slice_steps(K: int, bk: int, slices: int) -> List[Tuple[int, int]]:

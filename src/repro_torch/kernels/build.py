@@ -2,14 +2,14 @@
 
 At first use :func:`load` compiles each source of :data:`SOURCES`
 (``csrc/iaat_gemm.cu``, ``csrc/grouped_gemm.cu``, both on the shared
-``csrc/tile.cuh``) once per real letter (S, D, H), ``iaat_gemm.cu`` once
-per letter and load path (:data:`IAAT_PATHS`), each source of
+``csrc/tile.cuh``) once per real letter (S, D, H) and load path
+(:data:`IAAT_PATHS`, :data:`GROUPED_PATHS`), each source of
 :data:`SOURCES_CX` (``csrc/cx_gemm.cu``, the complex Karatsuba kernel)
 once per complex letter (C, Z), each object holding the template
 instances the install-time table (``core.kernelgen``) lists for that
 letter, and each source of :data:`SOURCES_ONCE`
 (``csrc/flash_attention.cu`` and ``csrc/ssd.cu``, each with its f32 and
-bf16 instances in one object) once; all sixteen ``nvcc`` jobs start
+bf16 instances in one object) once; all nineteen ``nvcc`` jobs start
 together.  The objects are linked
 into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
@@ -21,11 +21,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import pathlib
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Dict, Optional
 
 from repro_torch.core import kernelgen
@@ -35,13 +37,16 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torc
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LETTER_CODE = {letter: i for i, letter in enumerate(kernelgen.TABLE_LETTERS)}
-#: kernel sources, each built once per real letter (S, D, H); the C
-#: entries they export are ``<stem>_<letter>``; ``iaat_gemm`` once per
-#: letter and load path (:data:`IAAT_PATHS`), exporting
-#: ``iaat_gemm_<path>_<letter>``
+#: kernel sources, each built once per real letter (S, D, H) and load
+#: path, exporting ``<entry>_<path>_<letter>``: ``iaat_gemm`` per
+#: :data:`IAAT_PATHS`, ``grouped_gemm`` (entries ``batched_gemm`` and
+#: ``ragged_gemm``) per :data:`GROUPED_PATHS`
 SOURCES = ("iaat_gemm", "grouped_gemm")
 #: the IAAT kernel's load paths, in the order of their -DIAAT_MODE code
 IAAT_PATHS = ("scalar", "ring_n", "ring_k")
+#: the grouped kernels' load paths, in the order of their -DIAAT_MODE code
+GROUPED_PATHS = ("scalar", "ring")
+_PATHS = {"iaat_gemm": IAAT_PATHS, "grouped_gemm": GROUPED_PATHS}
 #: kernel sources built once per complex letter (C, Z); there is no
 #: complex grouped kernel, as in the reference
 SOURCES_CX = ("cx_gemm",)
@@ -84,7 +89,7 @@ def build_key() -> str:
 def build() -> pathlib.Path:
     """Compile the library if its key is not built yet; return its path.
     The ptxas report (registers, spills per instance) is kept beside it
-    in ``ptxas.log``."""
+    in ``ptxas.log``, each job's wall seconds in ``build_seconds.json``."""
     out_dir = BUILD_ROOT / build_key()
     lib = out_dir / "libiaat_gemm.so"
     if lib.exists():
@@ -95,33 +100,41 @@ def build() -> pathlib.Path:
     for letter, text in _tables().items():
         (work / f"iaat_table_{letter}.inc").write_text(text)
     # the IAAT objects first: the longest jobs
-    jobs = [("iaat_gemm", f"iaat_gemm_{letter}_{path}.o",
+    jobs = [(src, f"{src}_{letter}_{path}.o",
              [f"-DIAAT_LETTER={_LETTER_CODE[letter]}", f"-DIAAT_MODE={m}"])
-            for letter in kernelgen.KERNEL_LETTERS
-            for m, path in enumerate(IAAT_PATHS)]
+            for src in SOURCES for letter in kernelgen.KERNEL_LETTERS
+            for m, path in enumerate(_PATHS[src])]
     jobs += [(src, f"{src}_{letter}.o",
               [f"-DIAAT_LETTER={_LETTER_CODE[letter]}"])
-             for srcs, letters in ((SOURCES[1:], kernelgen.KERNEL_LETTERS),
-                                   (SOURCES_CX, kernelgen.COMPLEX_LETTERS))
-             for src in srcs for letter in letters]
+             for src in SOURCES_CX for letter in kernelgen.COMPLEX_LETTERS]
     jobs += [(src, f"{src}.o", []) for src in SOURCES_ONCE]
     procs, objs = [], []
+    t0 = time.perf_counter()
     for src, name, defs in jobs:
         obj = str(work / name)
         cmd = [nvcc, *NVCC_FLAGS, *defs, f"-I{work}", "-c",
                str(CSRC / f"{src}.cu"), "-o", obj]
         objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True)))
-    log = []
-    failed = None
-    for cmd, p in procs:
-        text, _ = p.communicate()
+        with open(f"{obj}.log", "w") as out:
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT)))
+    # each job's wall seconds, as the jobs end (kept in build_seconds.json)
+    seconds = {}
+    while len(seconds) < len(procs):
+        for cmd, obj, p in procs:
+            if obj not in seconds and p.poll() is not None:
+                seconds[obj] = time.perf_counter() - t0
+        time.sleep(0.05)
+    log, failed = [], None
+    for cmd, obj, p in procs:
+        text = pathlib.Path(f"{obj}.log").read_text()
         log.append(text)
         if p.returncode and failed is None:
             failed = (cmd, text)
     (work / "ptxas.log").write_text("".join(log))
+    (work / "build_seconds.json").write_text(json.dumps(
+        {pathlib.Path(o).name: round(t, 1) for o, t in seconds.items()},
+        indent=1))
     if failed is not None:
         raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{failed[1]}")
     res = subprocess.run([nvcc, "-shared", *objs, "-o",
@@ -148,10 +161,12 @@ def load() -> ctypes.CDLL:
             **{f"iaat_gemm_{path}": [i, i, i, p, ll, ll, p, ll, ll, p, ll,
                                      ll, p, ll, ll, i, i, i, d, d, i, p, p,
                                      p] for path in IAAT_PATHS},
-            "batched_gemm": [i, i, i, p, ll, ll, ll, p, ll, ll, ll, p, ll, ll,
-                             ll, i, i, i, i, p],
-            "ragged_gemm": [i, i, i, p, ll, ll, p, ll, ll, ll, p, i, i, p, ll,
-                            ll, i, i, p],
+            **{f"batched_gemm_{path}": [i, i, i, p, ll, ll, ll, p, ll, ll,
+                                        ll, p, ll, ll, ll, i, i, i, i, i, p,
+                                        p, p] for path in GROUPED_PATHS},
+            **{f"ragged_gemm_{path}": [i, i, i, p, ll, ll, p, ll, ll, ll, p,
+                                       i, i, p, ll, ll, i, i, i, p, p, p]
+               for path in GROUPED_PATHS},
         }
         for stem, types in argtypes.items():
             for letter in kernelgen.KERNEL_LETTERS:

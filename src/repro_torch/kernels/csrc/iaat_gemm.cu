@@ -19,7 +19,8 @@
 //     per-tile ticket (an atomicAdd after a __threadfence, reset to 0 by
 //     that block, so the tickets stay zeroed between launches), sums the
 //     slices in slice order (deterministic), applies the epilogue and
-//     stores: one launch a region, no second reduce launch;
+//     stores: one launch a region, no second reduce launch (tile.cuh
+//     slice_span and split_reduce, shared with grouped_gemm.cu);
 //   * the asynchronous path (tile.cuh ring_product) streams A and B
 //     through a ring of up to 3 stages of 16-byte cp.async copies along
 //     each operand's unit-stride dim, the NN weights along N and the tied
@@ -71,16 +72,10 @@ iaat_gemm_kernel(const T* __restrict__ A, int64_t a_sm, int64_t a_sk,
   typedef Layout<BM, BN> L;
   constexpr bool B_KC = MODE == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int last;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int slices = gridDim.z, z = blockIdx.z;
-
-  // this block's K slice: whole bk steps dealt out evenly, the first
-  // steps % slices slices one step longer (plan.slice_steps)
-  const int steps = (K + BK - 1) / BK, lo = steps / slices,
-            rem = steps % slices;
-  const int s0 = z * lo + min(z, rem), s1 = s0 + lo + (z < rem);
-  const int k_lo = s0 * BK, k_hi = min(K, s1 * BK);
+  int k_lo, k_hi;   // this block's K slice (plan.slice_steps)
+  slice_span<BK>(K, slices, z, k_lo, k_hi);
 
   Acc acc[L::TM][TN];
   if constexpr (MODE == 0)
@@ -96,54 +91,13 @@ iaat_gemm_kernel(const T* __restrict__ A, int64_t a_sm, int64_t a_sk,
   auto col = [&](int j) {
     return MODE == 0 ? tx + j * L::TX : ring_col<BM, BN, B_KC>(tx, j);
   };
-  if (slices > 1) {
-    // publish this slice's sums; the tile's last block reduces them
-    Acc* w = ws + (int64_t)z * M * N;
-#pragma unroll
-    for (int i = 0; i < L::TM; ++i) {
-      const int m = m0 + ty + i * L::TY;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + col(j);
-        if (n < N) w[(int64_t)m * N + n] = acc[i][j];
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned int* tk = tickets + blockIdx.y * gridDim.x + blockIdx.x;
-      last = atomicAdd(tk, 1u) == (unsigned int)(slices - 1);
-      if (last) *tk = 0u;   // every slice has arrived: ready for reuse
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-#pragma unroll
-    for (int i = 0; i < L::TM; ++i) {
-      const int m = m0 + ty + i * L::TY;
-      if (m >= M) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + col(j);
-        if (n >= N) continue;
-        // eight loads in flight at a time, added in slice order
-        const Acc* src = ws + (int64_t)m * N + n;
-        const int64_t step = (int64_t)M * N;
-        Acc s = Acc(0);
-        int q = 0;
-        for (; q + 8 <= slices; q += 8) {
-          Acc v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) v[u] = __ldcg(src + (q + u) * step);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) s += v[u];
-        }
-        for (; q < slices; ++q) s += __ldcg(src + q * step);
-        acc[i][j] = s;
-      }
-    }
-  }
+  // publish this slice's sums; the tile's last block reduces them
+  if (slices > 1 &&
+      !split_reduce(acc, ws, (int64_t)M * N, M, N,
+                    tickets + blockIdx.y * gridDim.x + blockIdx.x, slices, z,
+                    [&](int i) { return m0 + ty + i * L::TY; },
+                    [&](int j) { return n0 + col(j); }))
+    return;
 
   const Acc al = Acc(alpha), be = Acc(beta);
 #pragma unroll

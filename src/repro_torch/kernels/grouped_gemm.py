@@ -9,11 +9,20 @@ expert FFN).  Two kernels, both in ``csrc/grouped_gemm.cu``:
   rows, one group id per tile, x (T, K) @ w[gid] (G, K, N).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor (or raises; there
-is no fallback), counts the launch (:func:`launch_count`), and on a CPU
-tensor runs its plain version (:func:`batched_gemm_plain`,
-:func:`ragged_gemm_plain`: f32 accumulation, f64 for D, one cast).  The
-kernels have no backward yet: a CUDA call that autograd would record
-raises.
+is no fallback), counts the launch (:func:`launch_count`) and its path
+(:func:`path_count`), and on a CPU tensor runs its plain version
+(:func:`batched_gemm_plain`, :func:`ragged_gemm_plain`: f32
+accumulation, f64 for D, one cast).  The kernels have no backward yet: a
+CUDA call that autograd would record raises.
+
+The path follows the operands (:func:`launch_plan`, no knob): the
+``cp.async`` ring when x's k and w's n have unit stride and 16-byte-aligned
+rows (:func:`load_path`; the MoE layer's buffers and weights), else the
+scalar loads; on the ring a bf16 product runs on the tensor cores
+(``mma.sync``, counted as "mma").  A launch whose grid holds under half
+as many blocks as the card has SMs is cut along K
+(``plan.grouped_slices``) and reduced in the same launch, through a ``torch.empty`` workspace and one
+zeroed ticket per output tile (the IAAT kernel's ticket array).
 
 Blocks are an instance ``(bm, bn, bk)`` of the install-time table
 (:func:`pick_blocks`, or ``Decision.blocks`` from ``repro_torch.api``).
@@ -27,13 +36,18 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import kernelgen, vmem
+from repro_torch.core import kernelgen, plan, vmem
+from repro_torch.kernels import iaat_gemm
 from repro_torch.kernels.iaat_gemm import records_grad
 
 #: the most blocks a CUDA grid takes along y and z
 _GRID_YZ_MAX = 65535
 
 _launches = {"batched_gemm": 0, "ragged_gemm": 0}
+#: launches of either kernel by path: "ring" (16-byte cp.async copies),
+#: "scalar" (synchronous element loads), "split" (K slices > 1, either
+#: path) and "mma" (the ring's bf16 product on the tensor cores)
+_paths = {"ring": 0, "scalar": 0, "split": 0, "mma": 0}
 
 
 def launch_count(kernel: str) -> int:
@@ -42,9 +56,16 @@ def launch_count(kernel: str) -> int:
     return _launches[kernel]
 
 
+def path_count(path: str) -> int:
+    """Launches of either kernel since the last :func:`reset_launch_count`
+    on ``path``: "ring", "scalar", "split" or "mma"."""
+    return _paths[path]
+
+
 def reset_launch_count() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    for d in (_launches, _paths):
+        for k in d:
+            d[k] = 0
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -103,6 +124,40 @@ def ragged_gemm_plain(x, w, tile_group_ids, bm: int):
 # The launches.
 # --------------------------------------------------------------------------
 
+def _ring_rows(t: torch.Tensor) -> bool:
+    """Whether ``t`` has unit stride along its last dim, a 16-byte-aligned
+    start and 16-byte multiples for the stride of every other dim that
+    has more than one element: 16-byte copies along its rows are then
+    aligned."""
+    item = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        (s * item) % 16 == 0 for d, s in zip(t.shape[:-1], t.stride()[:-1])
+        if d > 1)
+
+
+def load_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The grouped kernels' path for x (G, C, K) or (T, K) and w (G, K,
+    N), by their strides: "ring" when x has k and w has n of unit stride
+    and both have 16-byte-aligned rows (the ring's copies; the MoE layer's
+    row-major buffers and weights); else "scalar"."""
+    return "ring" if _ring_rows(x) and _ring_rows(w) else "scalar"
+
+
+def launch_plan(x: torch.Tensor, w: torch.Tensor,
+                blocks: Tuple[int, int, int], tile: Optional[int] = None
+                ) -> Tuple[str, int]:
+    """(path, K slices) of one grouped launch: batched x (G, C, K), or,
+    with ``tile``, ragged x (T, K) in row tiles of ``tile`` rows; w (G, K,
+    N).  The grid holds ceil(N / bn) x ceil(rows / bm) blocks per group
+    or row tile, and it is split along K by ``plan.grouped_slices``."""
+    bm, bn, bk = blocks
+    K, N = w.shape[1], w.shape[2]
+    tiles, rows = (x.shape[0], x.shape[1]) if tile is None else \
+        (x.shape[0] // tile, tile)
+    grid = _cdiv(N, bn) * _cdiv(rows, bm) * tiles
+    return load_path(x, w), plan.grouped_slices(grid, K, bk)
+
+
 def _kernel_letter(name: str, *ts) -> str:
     dt = ts[0].dtype
     for t in ts:
@@ -121,22 +176,52 @@ def _kernel_letter(name: str, *ts) -> str:
     return letter
 
 
-def _call(name: str, letter: str, dev, *args) -> None:
+def _split(dev, letter: str, slices: int, tiles: int, rows: int, N: int,
+           steps: int):
+    """(workspace, its pointer, the tickets' pointer) of a launch of
+    ``slices`` K slices over ``tiles`` output tiles and ``rows`` x N
+    outputs; (None, None, None) for one slice.  It raises past the ticket
+    array's length, and for more slices than K has ``steps`` of bk."""
+    if not 1 <= slices <= max(steps, 1):
+        raise ValueError(f"{slices} K slices of {steps} bk steps")
+    if slices == 1:
+        return None, None, None
+    if tiles > iaat_gemm._TICKETS_LEN:
+        raise ValueError(f"a split grouped grid of {tiles} tiles exceeds "
+                         f"the {iaat_gemm._TICKETS_LEN} tickets")
+    acc = torch.float64 if letter == "D" else torch.float32
+    # held until the launch is queued; the stream orders any reuse
+    ws = torch.empty((slices, rows, N), dtype=acc, device=dev)
+    return ws, ws.data_ptr(), iaat_gemm._tickets_on(dev).data_ptr()
+
+
+def _call(name: str, letter: str, path: str, slices: int, x,
+          *args) -> None:
     from repro_torch.kernels import build
-    lib = build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"{name}_{letter}")(*args, stream)
+    fn = getattr(build.load(), f"{name}_{path}_{letter}")
+    # the launch goes to x's device and its current stream (the raw
+    # handle, as iaat_gemm does: a Stream object costs host time a call)
+    idx = x.get_device()
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     if rc == -1:
-        raise RuntimeError(f"{name}_{letter}: blocks {args[:3]} are not an "
-                           "instance of the built kernel table")
+        raise RuntimeError(f"{name}_{path}_{letter}: blocks {args[:3]} are "
+                           "not an instance of the built kernel table")
     if rc:
-        msg = lib.iaat_error_string(rc).decode()
-        raise RuntimeError(f"{name}_{letter}: launch failed: {msg}")
+        msg = build.load().iaat_error_string(rc).decode()
+        raise RuntimeError(f"{name}_{path}_{letter}: launch failed: {msg}")
     _launches[name] += 1
+    _paths[path] += 1
+    _paths["split"] += slices > 1
+    _paths["mma"] += path == "ring" and letter == "H"
 
 
-def _launch_batched(x, w, blocks):
+def _launch_batched(x, w, blocks, slices: Optional[int] = None):
+    """The batched kernel on x (G, C, K) and w (G, K, N); ``slices``
+    overrides the split rule (a measurement's knob, not the callers')."""
     letter = _kernel_letter("batched_gemm", x, w)
     G, C, K = x.shape
     N = w.shape[2]
@@ -149,13 +234,21 @@ def _launch_batched(x, w, blocks):
     if G > _GRID_YZ_MAX or _cdiv(C, bm) > _GRID_YZ_MAX:
         raise ValueError(f"batched_gemm: G={G}, C={C} at bm={bm} exceed the "
                          "CUDA grid")
-    _call("batched_gemm", letter, x.device, bm, bn, bk,
+    path, rule = launch_plan(x, w, blocks)
+    slices = slices or rule
+    ws, ws_p, tk_p = _split(x.device, letter, slices,
+                            _cdiv(N, bn) * _cdiv(C, bm) * G, G * C, N,
+                            _cdiv(K, bk))
+    _call("batched_gemm", letter, path, slices, x, bm, bn, bk,
           x.data_ptr(), *x.stride(), w.data_ptr(), *w.stride(),
-          out.data_ptr(), *out.stride(), G, C, N, K)
+          out.data_ptr(), *out.stride(), G, C, N, K, slices, ws_p, tk_p)
     return out
 
 
-def _launch_ragged(x, w, ids, bm: int, blocks):
+def _launch_ragged(x, w, ids, bm: int, blocks,
+                   slices: Optional[int] = None):
+    """The ragged kernel on x (T, K) in row tiles of ``bm`` and w (G, K,
+    N); ``slices`` as for :func:`_launch_batched`."""
     letter = _kernel_letter("ragged_gemm", x, w)
     T, K = x.shape
     N = w.shape[2]
@@ -166,12 +259,19 @@ def _launch_ragged(x, w, ids, bm: int, blocks):
         return out.zero_()
     ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
     ntiles = T // bm
-    if ntiles * _cdiv(bm, blocks[0]) > _GRID_YZ_MAX:
+    if ntiles > _GRID_YZ_MAX or _cdiv(bm, blocks[0]) > _GRID_YZ_MAX:
         raise ValueError(f"ragged_gemm: {ntiles} row tiles of {bm} exceed "
                          "the CUDA grid")
-    _call("ragged_gemm", letter, x.device, *blocks,
+    path, rule = launch_plan(x, w, blocks, tile=bm)
+    slices = slices or rule
+    ws, ws_p, tk_p = _split(
+        x.device, letter, slices,
+        _cdiv(N, blocks[1]) * _cdiv(bm, blocks[0]) * ntiles, T, N,
+        _cdiv(K, blocks[2]))
+    _call("ragged_gemm", letter, path, slices, x, *blocks,
           x.data_ptr(), *x.stride(), w.data_ptr(), *w.stride(),
-          ids.data_ptr(), bm, ntiles, out.data_ptr(), *out.stride(), N, K)
+          ids.data_ptr(), bm, ntiles, out.data_ptr(), *out.stride(), N, K,
+          slices, ws_p, tk_p)
     return out
 
 

@@ -173,10 +173,19 @@ def test_engine_tokens_match_jax_engine_under_preemption(smoke):
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
+    # chip_compare.py's per-tree run is a script in a string: parse it too
+    files.append(ROOT / "chip_compare.py:RUN")
     assert len(files) > 20
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+        if f.name.endswith(":RUN"):
+            src = ast.parse((ROOT / "chip_compare.py").read_text())
+            text, = [n.value.value for n in src.body
+                     if isinstance(n, ast.Assign) and
+                     getattr(n.targets[0], "id", None) == "RUN"]
+        else:
+            text = f.read_text()
+        for node in ast.walk(ast.parse(text, str(f))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
