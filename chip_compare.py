@@ -18,7 +18,11 @@ of the kernel):
   ``batched_gemm`` on 64 experts x C 8 for gate/up (K 2048, N 1408) and
   down (K 1408, N 2048), and ``ragged_gemm`` (the wrapper's launch alone)
   on the dropless layout of 4 tokens x top-6 in row tiles of 8, each with
-  its library call beside it (``torch.bmm``, ``torch._grouped_mm``).
+  its library call beside it (``torch.bmm``, ``torch._grouped_mm``);
+* the complex kernel through ``api.gemm`` under the forced kernel, C
+  (complex64) and Z (complex128) at 80^3, 512^3 and 2048^3, NN;
+* the SSD scan at mamba2-780m's ``forward_train`` shape (Bt 2 x S 2048 x
+  48 heads x P 64, N 128, chunk 128, f32).
 
 Prints one line per run and the card's name and power limit, and writes
 the runs to ``--out`` (default ``chiprun_out/chip_compare.json``).  Exits
@@ -59,7 +63,9 @@ def loop_ms(fn, n, warm=3):
 def device_ms(fn, n, match):
     """Device ms a call of fn's kernels whose name holds match, from a
     torch.profiler trace of n calls; a trace that comes back without
-    device events is taken again (three tries, then None)."""
+    device events, or with a count of them that is no whole number a
+    call (kernels lost while it started), is taken again (three tries,
+    then None)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -68,10 +74,12 @@ def device_ms(fn, n, match):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if match in e.key and str(e.device_type).endswith("CUDA"))
-        if us > 0:
-            return us / 1e3 / n
+        found = [e for e in prof.key_averages()
+                 if match in e.key and str(e.device_type).endswith("CUDA")
+                 and e.self_device_time_total > 0]
+        count = sum(e.count for e in found)
+        if count and count % n == 0:
+            return sum(e.self_device_time_total for e in found) / 1e3 / n
     return None
 
 
@@ -147,6 +155,26 @@ for (K, N) in ((2048, 1408), (1408, 2048)):
             lambda: torch._grouped_mm(xr, w, offs=offs), "")
     except RuntimeError as e:      # a yardstick, not a check: say why
         out[f"torch._grouped_mm {T} rows K{K} N{N}"] = str(e)[:200]
+from repro_torch.kernels import ssd
+for letter, dt in (("C", torch.complex64), ("Z", torch.complex128)):
+    for n in (80, 512, 2048):
+        a, b = (torch.complex(torch.randn((n, n), generator=g, device="cuda",
+                                          dtype=torch.float64),
+                              torch.randn((n, n), generator=g, device="cuda",
+                                          dtype=torch.float64)).to(dt)
+                for _ in range(2))
+        out[f"cx_gemm {letter} {n}^3"] = both(
+            lambda: api.gemm(a, b, policy=kern), "cx_gemm",
+            50 if n < 1024 else 10)
+Bt, S, H, P, N = 2, 2048, 48, 64, 128
+row = torch.randn((Bt, S, H * P + 2 * N), generator=g, device="cuda") * 0.3
+x = row[..., :H * P].reshape(Bt, S, H, P)
+B = row[..., H * P:H * P + N].reshape(Bt, S, 1, N)
+C = row[..., H * P + N:].reshape(Bt, S, 1, N)
+dt = torch.randn((Bt, S, H), generator=g, device="cuda").abs() * 0.1 + 0.01
+A = -torch.randn((H,), generator=g, device="cuda").abs() * 0.5 - 0.1
+out["ssd_scan 2 x 2048 x 48 x 64, N 128, chunk 128"] = both(
+    lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=128), "ssd_")
 print("RESULT " + json.dumps(out))
 '''
 

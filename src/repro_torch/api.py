@@ -58,7 +58,8 @@ HOPPER_SCALE = HOPPER_CROSSOVER / paper_table.PAPER_SMALL_THRESHOLD
 #: count as the small regime.  Under ``auto`` a longer plan routes to the
 #: library, and ``ROUTES`` records it so; the forced-kernel policy runs
 #: every plan through the kernel, however long (the reference's valve).
-MAX_PLAN_REGIONS = 64
+#: A complex plan of this many regions is one launch.
+MAX_PLAN_REGIONS = plan_mod.LAUNCH_REGIONS
 
 #: Op kinds the router understands, with their ``dims`` convention:
 #:   gemm          (M, N, K)            2-D BLAS entry

@@ -18,6 +18,7 @@ The grouped kernels split by a rule of their own (:func:`grouped_slices`).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 from typing import List, Optional, Tuple
@@ -32,6 +33,9 @@ from repro_torch.core.tiler import Block, Tiling, tile_hopper
 #: the fewest bk steps a K slice takes, so that the kernel's load ring
 #: has a next tile to fetch while it multiplies the current one
 MIN_SLICE_STEPS = 2
+#: regions one launch of the complex kernel takes (``csrc/cx_gemm.cu``
+#: MAX_REGIONS), and the Router's plan cut (``api.MAX_PLAN_REGIONS``)
+LAUNCH_REGIONS = 64
 
 
 def k_slices(gm: int, gn: int, K: int, bk: int, resident: int) -> int:
@@ -117,6 +121,51 @@ class Plan:
 
     def memops(self) -> int:
         return self.tiling.memops(self.K)
+
+    @functools.cached_property
+    def launch_tables(self) -> Tuple[Tuple[Tuple[int, ...], ...], ...]:
+        """The region tables of the one-launch complex path (DESIGN_PORT.md
+        §9), one a launch of at most :data:`LAUNCH_REGIONS` regions.  A row
+        per region that holds part of (M, N), in plan order: (start, m0,
+        m_hi, n0, n_hi, gn, bm, bn, bk), its first block in the launch's
+        grid, its rows and columns clipped to the output, its blocks across
+        and its instance.  A block runs the last row whose first block is
+        at or before it."""
+        return launch_tables(self.M, self.N, self.regions)
+
+    @functools.cached_property
+    def c_launch_tables(self):
+        """:attr:`launch_tables` as the C entry takes them."""
+        return c_tables(self.launch_tables)
+
+
+def launch_tables(M: int, N: int, regions) -> Tuple[Tuple[Tuple[int, ...],
+                                                          ...], ...]:
+    """:attr:`Plan.launch_tables` of ``regions`` over an (M, N) output."""
+    tables, rows, start = [], [], 0
+    for r in regions:
+        if r.m0 >= M or r.n0 >= N:
+            continue  # fully-overhang region (alignment padding)
+        if len(rows) == LAUNCH_REGIONS:
+            tables.append(tuple(rows))
+            rows, start = [], 0
+        m_hi = min(M, r.m0 + r.m_extent)
+        n_hi = min(N, r.n0 + r.n_extent)
+        gm = -(-(m_hi - r.m0) // r.sig.bm)
+        gn = -(-(n_hi - r.n0) // r.sig.bn)
+        rows.append((start, r.m0, m_hi, r.n0, n_hi, gn, r.sig.bm, r.sig.bn,
+                     r.sig.bk))
+        start += gm * gn
+    tables.append(tuple(rows))
+    return tuple(tables)
+
+
+def c_tables(tables):
+    """Region tables as the complex kernel's C entry takes them: an
+    (int array of the rows, row count) a launch."""
+    return tuple(((ctypes.c_int * (9 * len(t)))(*(v for row in t
+                                                   for v in row)), len(t))
+                 for t in tables)
 
 
 def _choose_bk(letter: str, trans: str, bm: int, bn: int, K: int) -> int:
@@ -230,7 +279,12 @@ def execute(plan: Plan, a: torch.Tensor, b: torch.Tensor,
     Operands of mixed dtype are first brought to their promoted type, as
     the reference's ``_cx_call`` casts each plane: a real x complex GEMM
     runs the complex kernel on a zero imaginary plane.  ``c`` of any dtype
-    is cast by the region (``iaat_gemm.c_dtype``)."""
+    is cast by the region (``iaat_gemm.c_dtype``).
+
+    A complex plan runs as one launch of the complex kernel over the
+    plan's region table (:attr:`Plan.launch_tables`;
+    ``iaat_gemm.cx_plan``): the checks and the output allocation happen
+    once a call, and the regions' offsets replace their views."""
     from repro_torch.kernels import iaat_gemm
     M, N, trans = plan.M, plan.N, plan.trans
     dtype = torch.promote_types(a.dtype, b.dtype)
@@ -238,6 +292,8 @@ def execute(plan: Plan, a: torch.Tensor, b: torch.Tensor,
         a = a.to(dtype)
     if b.dtype != dtype:
         b = b.to(dtype)
+    if dtype.is_complex:
+        return iaat_gemm.cx_plan(plan, a, b, c, alpha, beta)
     out = torch.empty((M, N), dtype=dtype, device=a.device)
     a_m_axis = 0 if trans[0] == "N" else 1
     b_n_axis = 1 if trans[1] == "N" else 0

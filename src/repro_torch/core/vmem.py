@@ -6,8 +6,7 @@ its counterpart is easy to find, but on an H100 the two scarce resources
 of one CUDA block are these (DESIGN_PORT.md §1):
 
 1. *Shared memory.*  The kernel stages one (bk x bm) tile of A and one
-   (bk x bn) tile of B per K step (the complex kernel two of each: the
-   real and the imaginary plane).  A block may use 227 KB of the SM's
+   (bk x bn) tile of B per K step (the complex kernel of (re, im) pairs).  A block may use 227 KB of the SM's
    256 KB, above 48 KB only as dynamic shared memory after an opt-in;
    :func:`footprint` checks a candidate against that budget.  The real
    kernel's asynchronous path keeps a ring of such tiles, as many stages
@@ -40,6 +39,11 @@ RING_STAGES_MAX = 3             # stages of the real kernel's cp.async ring
 #: shared memory a ring may take so that BLOCKS_PER_SM blocks share an SM
 RING_BUDGET = SMEM_SM_BYTES // BLOCKS_PER_SM - SMEM_BLOCK_RESERVED
 NTHREADS = 256                  # threads per block of the IAAT kernel
+#: the complex kernel (csrc/cx_gemm.cu): complex elements padding a staged
+#: row, and k rows of one stage of its ring (a bk step is bk / CX_RING_K
+#: stages)
+CX_PAD = 2
+CX_RING_K = 16
 ACC_REG_CAP = 64                # accumulator registers per thread
 LINE_BYTES = 128                # one coalesced warp transaction (32 x 4 B)
 # Rows: multiples of 16, the m16 of mma.sync.  A CUDA-core kernel has no
@@ -86,9 +90,9 @@ def align_k(k: int, dtype) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Footprint:
-    """``total`` is one stage of the synchronous loop (the complex kernel
-    and the real kernel's scalar path); ``stages`` x ``stage_bytes`` is the
-    real kernel's ring (one stage for the complex kernel)."""
+    """``total`` is one bk step of the synchronous loop (the real
+    kernel's scalar path); ``stages`` x ``stage_bytes`` is the ring (the
+    complex kernel's holds one bk step, cut into stages)."""
     a_bytes: int
     b_bytes: int
     acc_regs: int
@@ -138,19 +142,23 @@ def footprint(bm: int, bn: int, bk: int, dtype, *, complex_: bool = False,
     """Shared bytes and accumulator registers of one (bm, bn, bk) block:
     the A tile bk x (bm + pad) and the B tile bk x (bn + pad), staged once
     per K step in the synchronous loop.  ``dtype`` is the plane type; a
-    complex block stages a real and an imaginary plane of each tile (the
-    Karatsuba sums Ar+Ai, Br+Bi are formed in registers, not staged) and
-    has no ring.  A real block's ring takes as many stages of
-    :func:`ring_stage_bytes` as fit :data:`RING_BUDGET` (two blocks an
-    SM), at most :data:`RING_STAGES_MAX` and at least one (then one block
-    an SM, within the 227 KB opt-in)."""
+    complex block stages its tiles as (re, im) pairs, rows of bm (bn)
+    complex elements padded by :data:`CX_PAD` (the Karatsuba sums Ar+Ai,
+    Br+Bi are formed in registers, not staged), and streams one bk step
+    through a ring of bk / :data:`CX_RING_K` stages of CX_RING_K rows.  A
+    real block's ring takes as many stages of :func:`ring_stage_bytes` as
+    fit :data:`RING_BUDGET` (two blocks an SM), at most
+    :data:`RING_STAGES_MAX` and at least one (then one block an SM, within
+    the 227 KB opt-in)."""
     item, p = itemsize(dtype), pad(dtype)
-    planes = 2 if complex_ else 1
-    a = bk * (bm + p) * item * planes
-    b = bk * (bn + p) * item * planes
     regs = reg_pressure(bm, bn, acc_dtype, complex_=complex_)
     if complex_:
-        return Footprint(a, b, regs, a + b)
+        a = bk * (bm + CX_PAD) * 2 * item
+        b = bk * (bn + CX_PAD) * 2 * item
+        stages = bk // CX_RING_K
+        return Footprint(a, b, regs, a + b, stages, (a + b) // stages)
+    a = bk * (bm + p) * item
+    b = bk * (bn + p) * item
     stage = ring_stage_bytes(bm, bn, bk, dtype)
     stages = max(1, min(RING_STAGES_MAX, RING_BUDGET // stage))
     return Footprint(a, b, regs, a + b, stages, stage)

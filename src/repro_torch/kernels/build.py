@@ -175,15 +175,15 @@ def load() -> ctypes.CDLL:
                 fn.restype = i
         for letter in kernelgen.COMPLEX_LETTERS:
             fn = getattr(lib, f"cx_gemm_{letter}")
-            fn.argtypes = [i, i, i, p, ll, ll, p, ll, ll, p, ll, ll, p, ll,
-                           ll, i, i, i, d, d, d, d, p]
+            fn.argtypes = [ctypes.POINTER(i), i, p, ll, ll, p, ll, ll, p, ll,
+                           ll, p, ll, ll, i, d, d, d, d, p]
             fn.restype = i
         s = ctypes.POINTER(ll)      # four strides
         lib.flash_attention.argtypes = [i, i, p, s, p, s, p, s, p, s, i, i,
                                         i, i, i, i, i, i, ctypes.c_float, p]
         lib.flash_attention.restype = i
         lib.ssd_scan.argtypes = [i, i, p, s, p, s, p, p, s, p, s, p, s, i, i,
-                                 i, i, i, p]
+                                 i, i, i, i, i, p, p, ctypes.POINTER(i)]
         lib.ssd_scan.restype = i
         lib.iaat_error_string.argtypes = [i]
         lib.iaat_error_string.restype = ctypes.c_char_p

@@ -10,7 +10,9 @@ one :class:`KernelSig`.
   ``kernels/build.py``.  Each launch is checked with ``cudaGetLastError``
   and counted (:func:`launch_count`, per kernel; :func:`path_count`, per
   path of the real kernel: the cp.async ring or the scalar loads, and
-  split-K launches).  A real region may be cut into K slices (the plan's
+  split-K launches).  A complex plan is one launch (:func:`cx_plan`,
+  over the plan's region table), a complex region alone too.  A real
+  region may be cut into K slices (the plan's
   ``Region.slices``): one launch still, its blocks summing into a
   ``torch.empty`` workspace, the last block of each output tile adding
   the slices in order (per-tile tickets, one zeroed array per device).
@@ -43,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import templates
+from repro_torch.core import kernelgen, templates
 from repro_torch.core.kernelgen import KernelSig
 from repro_torch.kernels import build
 
@@ -179,16 +181,25 @@ def _sig_types(sig: KernelSig):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(sig: KernelSig, mode: Optional[int]):
-    """The C entry of a signature's launch: the complex kernel's for C/Z
-    (``mode`` None), else the real kernel's for load path ``mode``."""
-    lib = build.load()
-    if mode is None:
-        return getattr(lib, f"cx_gemm_{sig.letter}")
-    return getattr(lib, f"iaat_gemm_{_MODES[mode][0]}_{sig.letter}")
+def _entry(sig: KernelSig, mode: int):
+    """The real kernel's C entry of a signature for load path ``mode``."""
+    return getattr(build.load(), f"iaat_gemm_{_MODES[mode][0]}_{sig.letter}")
+
+
+@functools.lru_cache(maxsize=None)
+def _cx_entry(letter: str):
+    """The complex kernel's C entry of a letter (C or Z)."""
+    return getattr(build.load(), f"cx_gemm_{letter}")
 
 
 def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
+    if sig.complex_:
+        if slices != 1:
+            raise ValueError(f"{sig.name}: the complex kernel takes no K "
+                             "slices")
+        return _launch_cx(sig.letter, sig.trans,
+                          _region_tables(sig, *_mn(a, b, sig.trans)), a, b,
+                          c, alpha, beta, out)
     opa = templates.op(a, sig.trans[0])
     opb = templates.op(b, sig.trans[1])
     M, K = opa.shape
@@ -216,35 +227,21 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
         out = torch.empty((M, N), dtype=dt, device=dev)
     elif out.shape != (M, N):
         raise ValueError(f"out {tuple(out.shape)} != ({M}, {N})")
-    if sig.complex_:
-        if slices != 1:
-            raise ValueError(f"{sig.name}: the complex kernel takes no K "
-                             "slices")
-        # complex strides in complex elements: the kernel reads each
-        # (re, im) pair in place; a lazily conjugated view is resolved
-        # first (its memory holds the unconjugated values)
-        opa, opb = opa.resolve_conj(), opb.resolve_conj()
-        c = None if c is None else c.resolve_conj()
-        kernel, mode = "cx_gemm", None
-        tail = (complex(alpha).real, complex(alpha).imag,
-                complex(beta).real, complex(beta).imag)
-    else:
-        if slices < 1:
-            raise ValueError(f"{sig.name}: {slices} K slices")
-        kernel = "iaat_gemm"
-        mode = load_mode(opa, opb)
-        ws = None
-        if slices > 1:
-            tiles = -(-M // sig.bm) * -(-N // sig.bn)
-            if tiles > _TICKETS_LEN:
-                raise ValueError(f"{sig.name}: a split grid of {tiles} "
-                                 f"tiles exceeds the {_TICKETS_LEN} tickets")
-            tickets = _tickets_on(dev)
-            # held until the launch is queued; the stream orders any reuse
-            ws = torch.empty((slices, M, N), dtype=sig.acc_dtype, device=dev)
-        tail = (float(alpha), float(beta), slices,
-                None if ws is None else ws.data_ptr(),
-                None if ws is None else tickets.data_ptr())
+    if slices < 1:
+        raise ValueError(f"{sig.name}: {slices} K slices")
+    mode = load_mode(opa, opb)
+    ws = None
+    if slices > 1:
+        tiles = -(-M // sig.bm) * -(-N // sig.bn)
+        if tiles > _TICKETS_LEN:
+            raise ValueError(f"{sig.name}: a split grid of {tiles} "
+                             f"tiles exceeds the {_TICKETS_LEN} tickets")
+        tickets = _tickets_on(dev)
+        # held until the launch is queued; the stream orders any reuse
+        ws = torch.empty((slices, M, N), dtype=sig.acc_dtype, device=dev)
+    tail = (float(alpha), float(beta), slices,
+            None if ws is None else ws.data_ptr(),
+            None if ws is None else tickets.data_ptr())
     sa, sb = opa.stride(), opb.stride()
     so = out.stride()
     sc = (0, 0) if c is None else c.stride()
@@ -266,10 +263,131 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
     if rc:
         msg = build.load().iaat_error_string(rc).decode()
         raise RuntimeError(f"{sig.name}: launch failed: {msg}")
-    _launches[kernel] += 1
-    if mode is not None:
-        _paths[_MODES[mode][1]] += 1
-        _paths["split"] += slices > 1
+    _launches["iaat_gemm"] += 1
+    _paths[_MODES[mode][1]] += 1
+    _paths["split"] += slices > 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# The complex kernel: one launch a plan (or a region alone).
+# --------------------------------------------------------------------------
+
+def _mn(a, b, trans):
+    """(M, N) of op(a) @ op(b)."""
+    return (a.shape[1] if trans[0] == "T" else a.shape[0],
+            b.shape[0] if trans[1] == "T" else b.shape[1])
+
+
+@functools.lru_cache(maxsize=4096)
+def _region_tables(sig: KernelSig, M: int, N: int):
+    """The C launch table of one region, ``sig``'s blocks over (M, N)."""
+    from repro_torch.core import plan as plan_mod
+    gm, gn = -(-M // sig.bm), -(-N // sig.bn)
+    return plan_mod.c_tables(plan_mod.launch_tables(
+        M, N, (plan_mod.Region(sig, 0, 0, gm, gn, 1),)))
+
+
+def _launch_cx(letter: str, trans: str, tables, a, b, c, alpha, beta,
+               out=None):
+    """Launch the complex kernel of ``letter`` once per region table of
+    ``tables`` (``Plan.c_launch_tables``).  ``a``, ``b`` and ``out`` are
+    in the letter's complex dtype, ``c`` too or None."""
+    opa = templates.op(a, trans[0])
+    opb = templates.op(b, trans[1])
+    M, K = opa.shape
+    K2, N = opb.shape
+    if K != K2:
+        raise ValueError(f"K mismatch: op(A) {tuple(opa.shape)} vs op(B) "
+                         f"{tuple(opb.shape)}")
+    if min(M, N, K) < 1:
+        raise ValueError(f"empty GEMM {M}x{N}x{K}")
+    dt = kernelgen.BLAS_DTYPES[letter]
+    dev = a.device
+    idx = a.get_device()
+    for name, t in (("a", a), ("b", b), ("c", c), ("out", out)):
+        if t is None:
+            continue
+        if t.get_device() != idx:
+            raise ValueError(f"{name} on {t.device}, a on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{letter} GEMM: {name} is {t.dtype}, the "
+                            f"kernel takes {dt}")
+    if c is not None and c.shape != (M, N):
+        raise ValueError(f"c {tuple(c.shape)} != ({M}, {N})")
+    if out is None:
+        out = torch.empty((M, N), dtype=dt, device=dev)
+    elif out.shape != (M, N):
+        raise ValueError(f"out {tuple(out.shape)} != ({M}, {N})")
+    # complex strides in complex elements: the kernel reads each (re, im)
+    # pair in place; a lazily conjugated view is resolved first (its
+    # memory holds the unconjugated values)
+    if opa.is_conj():
+        opa = opa.resolve_conj()
+    if opb.is_conj():
+        opb = opb.resolve_conj()
+    if c is not None and c.is_conj():
+        c = c.resolve_conj()
+    pa, pb, po = opa.data_ptr(), opb.data_ptr(), out.data_ptr()
+    pc = None if c is None else c.data_ptr()
+    # each element is one cp.async of its own size
+    if (pa | pb | po | (pc or 0)) % out.element_size():
+        raise ValueError(f"{letter} GEMM: an operand is not aligned to its "
+                         f"{out.element_size()}-byte elements")
+    sa, sb, so = opa.stride(), opb.stride(), out.stride()
+    sc = (0, 0) if c is None else c.stride()
+    alpha, beta = complex(alpha), complex(beta)
+    args = (pa, sa[0], sa[1], pb, sb[0], sb[1], pc, sc[0], sc[1], po,
+            so[0], so[1], K, alpha.real, alpha.imag, beta.real, beta.imag)
+    fn = _cx_entry(letter)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    for tab, n in tables:
+        # the launch goes to the current device, as the real kernel's
+        if idx == torch.cuda.current_device():
+            rc = fn(tab, n, *args, stream)
+        else:
+            with torch.cuda.device(dev):
+                rc = fn(tab, n, *args, stream)
+        if rc == -1:
+            raise RuntimeError(f"{letter} GEMM: a region's block is no "
+                               "instance of the built kernel table")
+        if rc:
+            msg = build.load().iaat_error_string(rc).decode()
+            raise RuntimeError(f"{letter} GEMM: launch failed: {msg}")
+        _launches["cx_gemm"] += 1
+    return out
+
+
+def cx_plan(plan, a, b, c=None, alpha=1.0, beta=0.0) -> torch.Tensor:
+    """Run a complex plan (``core/plan.py``): ``a`` and ``b`` in the
+    plan's complex dtype, ``c`` of any dtype.  On a CUDA tensor one launch
+    of the complex kernel per region table of ``plan.launch_tables`` (one
+    for a plan of at most ``plan.LAUNCH_REGIONS`` regions); on a CPU
+    tensor each table row's region by :func:`cx_region_plain`, written at
+    its offsets.  Forward-only, as :func:`gemm_region`."""
+    dt = kernelgen.BLAS_DTYPES[plan.letter]
+    if c is not None and c.dtype != dt:
+        c = c.to(dt)
+    if records_grad(a, b, c):
+        raise RuntimeError(
+            f"{plan.letter} GEMM: complex IAAT regions are forward-only (no "
+            "backward, as in the reference); call under torch.no_grad() or "
+            "detach the operands")
+    if a.device.type == "cuda":
+        return _launch_cx(plan.letter, plan.trans, plan.c_launch_tables, a,
+                          b, c, alpha, beta)
+    if a.device.type != "cpu":
+        raise ValueError(f"no IAAT kernel for device {a.device}")
+    out = torch.empty((plan.M, plan.N), dtype=dt, device=a.device)
+    a_m = 0 if plan.trans[0] == "N" else 1
+    b_n = 1 if plan.trans[1] == "N" else 0
+    for table in plan.launch_tables:
+        for _, m0, m_hi, n0, n_hi, _, bm, bn, bk in table:
+            sig = KernelSig(plan.letter, plan.trans, bm, bn, bk)
+            out[m0:m_hi, n0:n_hi] = cx_region_plain(
+                sig, a.narrow(a_m, m0, m_hi - m0),
+                b.narrow(b_n, n0, n_hi - n0),
+                None if c is None else c[m0:m_hi, n0:n_hi], alpha, beta)
     return out
 
 

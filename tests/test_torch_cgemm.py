@@ -151,10 +151,11 @@ def test_gemm_region_complex_matches_jax(letter, trans):
 
 
 def test_complex_census_every_instance_fits():
-    """C/Z blocks stage two planes of each tile and keep three
-    accumulator planes: 12 C and 6 Z instances, the same blocks under
-    every transposition, each within the 227 KB shared budget and the
-    64-register accumulator cap."""
+    """C/Z blocks stage each tile as (re, im) pairs, rows padded by two
+    complex elements, streamed through a ring of bk/16 stages, and keep
+    three accumulator planes: 12 C and 6 Z instances, the same blocks
+    under every transposition, each within the 227 KB shared budget and
+    the 64-register accumulator cap."""
     census = kernelgen.census()
     for letter, want in (("C", 12), ("Z", 6)):
         shapes = {t: {(s.bm, s.bn, s.bk) for s in
@@ -165,7 +166,11 @@ def test_complex_census_every_instance_fits():
             fp = s.footprint()
             real = vmem.footprint(s.bm, s.bn, s.bk, s.real_dtype,
                                   acc_dtype=s.acc_dtype)
-            assert fp.fits and fp.total == 2 * real.total
+            item = 2 * vmem.itemsize(s.real_dtype)
+            assert fp.fits and fp.total == s.bk * (
+                s.bm + s.bn + 2 * vmem.CX_PAD) * item
+            assert (fp.stages, fp.ring_bytes) == (s.bk // vmem.CX_RING_K,
+                                                  fp.total)
             assert fp.acc_regs == 3 * real.acc_regs <= vmem.ACC_REG_CAP
             assert vmem.thread_layout_ok(s.bm, s.bn)
     assert sum(1 for i in kernelgen.instances() if i[0] == "C") == 12
