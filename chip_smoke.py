@@ -123,12 +123,36 @@ fails the run:
 21. ssd kernels — SSD kernel / plain / ref.ref_ssd loop and
             torch.profiler device times, launches per scan and two bounds
             (C Bᵀ counted once a batch and chunk, and once a head) at the
-            forward's shape (f32, as the model passes it).
+            forward's shape (f32, as the model passes it);
+22. concurrent split — olmo-1b's four decode shapes (M = 4; K split on
+            the ring but for the tied vocabulary head, whose grid fills
+            the card) and one moonshot batched_gemm decode call on two
+            streams at once, six times over, each against its plain
+            version; the split launches counted per stream, one ticket
+            array a stream (run after phase 3);
+23. online serve — olmo-1b at full width under ``tuned`` with the online
+            tuner (launch.serve.serve(online_tune=True, trace=...)), from
+            an empty profile: at least one background cycle and one swap,
+            merged online entries with finite kernel times, every request
+            done, every step under one profile generation; then the same
+            requests with no tuner (tok/s of both, requests whose bf16
+            tokens differ); then olmo-smoke in f32 with manual swaps
+            between steps, token-identical to a run with none (run after
+            phase 12);
+24. trace — the serve's Perfetto file: a track per slot, flow-linked
+            request slices, a tuner track with tune_cycle slices, and
+            ``python -m repro_torch.obs trace IN OUT`` re-exporting it
+            identically; the per-request summary (queue wait, TTFT p50 /
+            p99, decode stall);
+25. online grouped — one synchronous OnlineTuner.cycle() on the traffic
+            the moonshot serve left in ROUTES: at least one grouped:
+            entry re-timed on the card (run after phase 7).
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
 the script exits non-zero and prints no result.
 """
+import contextlib
 import itertools
 import json
 import math
@@ -2404,6 +2428,345 @@ def phase_complex_kernels(torch, launches, max_abs_err):
     return entry, rows
 
 
+# --------------------------------------------------------------------------
+# The online tuner, the per-stream split tickets and the trace.
+# --------------------------------------------------------------------------
+
+ONLINE_REQUESTS, ONLINE_MAX_NEW = 12, 32
+
+
+def phase_concurrent_split(torch, mcfg, reps=6):
+    """olmo-1b's four decode shapes (M = 4, K split on the ring) and one
+    moonshot ``batched_gemm`` decode call on two streams at once, ``reps``
+    times over: both streams first queue a spin kernel, so their launches
+    pile up and run side by side.  Every output matches its plain version
+    at the check's tolerances, and the split launches are counted on each
+    stream (the IAAT kernel keeps its tickets per stream)."""
+    from repro_torch import api
+    from repro_torch.kernels import grouped_gemm, iaat_gemm
+    kern = api.Policy(backend="kernel")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    ops = [_main_operands(torch, g, 4, K, N, tied)
+           for K, N, tied in MAIN_SHAPES]
+    want = [iaat_gemm.gemm_region_plain(
+        _plan_of(4, N, K).regions[0].sig, x, ws[0])
+        for (x, ws), (K, N, _) in zip(ops, MAIN_SHAPES)]
+    # q/k/v/o, gate/up and down split K; the tied vocabulary head's grid
+    # fills the card, so it runs unsplit beside them
+    plans = [_plan_of(4, N, K).regions for K, N, _ in MAIN_SHAPES]
+    split_per_pass = sum(r.slices > 1 for regions in plans
+                         for r in regions)
+    if [any(r.slices > 1 for r in regions) for regions in plans] != \
+            [not tied for _K, _N, tied in MAIN_SHAPES]:
+        raise AssertionError("concurrent split: the decode shapes' K "
+                             f"slices are not the main path's: {plans}")
+    E, C = mcfg.moe.num_experts, _decode_capacity(mcfg)
+    Kg, Ng = next(iter(_grouped_decode_shapes(mcfg)))        # gate/up
+    gx = torch.randn((E, C, Kg), generator=g, device="cuda").to(
+        torch.bfloat16)
+    gw = (torch.randn((E, Kg, Ng), generator=g, device="cuda") /
+          math.sqrt(Kg)).to(torch.bfloat16)
+    gwant = grouped_gemm.batched_gemm_plain(gx, gw)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    _reset_counts()
+    outs, split, batched = [[], []], [0, 0], [0, 0]
+    for _ in range(reps):
+        for i, s in enumerate(streams):
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(2_000_000)     # ~1 ms: let both queue
+        for i, s in enumerate(streams):
+            n0, b0 = iaat_gemm.path_count("split"), \
+                grouped_gemm.launch_count("batched_gemm")
+            with torch.cuda.stream(s):
+                outs[i].append([api.matmul(x, ws[0], policy=kern)
+                                for x, ws in ops] +
+                               [grouped_gemm.batched_gemm(gx, gw)])
+            split[i] += iaat_gemm.path_count("split") - n0
+            batched[i] += grouped_gemm.launch_count("batched_gemm") - b0
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i in range(2):
+        for res in outs[i]:
+            for got, w in zip(res, want + [gwant]):
+                _, rel = _rel_err(got, w)
+                worst = max(worst, rel)
+                if not rel <= TOL["H"]:
+                    raise AssertionError(f"concurrent split: stream {i} rel "
+                                         f"err {rel} > {TOL['H']}")
+    if split != [reps * split_per_pass] * 2 or batched != [reps] * 2:
+        raise AssertionError(f"concurrent split: split launches {split}, "
+                             f"batched {batched} per stream, want "
+                             f"{reps * split_per_pass} and {reps}")
+    keys = [k for k in iaat_gemm._tickets if k[1] in
+            (streams[0].cuda_stream, streams[1].cuda_stream)]
+    if len(keys) != 2:
+        raise AssertionError(f"concurrent split: ticket arrays {keys}")
+    log(f"concurrent split: {reps} passes on each of 2 streams, split "
+        f"launches per stream {split}, batched {batched}, one ticket array "
+        f"a stream; worst rel err {worst:.3g} (tolerance {TOL['H']})")
+    return {"split_per_stream": split, "batched_per_stream": batched,
+            "worst_rel_err": worst}
+
+
+@contextlib.contextmanager
+def _empty_tune_cache():
+    """A fresh, empty tune cache for the body; the active profile is
+    cleared on the way in and out, and the environment restored."""
+    import os
+    from repro_torch.tune import profile as profile_mod
+    env = os.environ.get(profile_mod.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ[profile_mod.CACHE_ENV] = cache
+        profile_mod.clear_active_profile()
+        try:
+            yield cache
+        finally:
+            profile_mod.clear_active_profile()
+            if env is None:
+                os.environ.pop(profile_mod.CACHE_ENV, None)
+            else:
+                os.environ[profile_mod.CACHE_ENV] = env
+
+
+def _smoke_swap_parity(torch):
+    """olmo-smoke in f32 on the card under ``tuned``: a run with manual
+    ``set_active_profile`` swaps between steps (p1: every routed class on
+    the kernel, p2: on the library) gives the tokens of a run with none."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import api, configs, obs
+    from repro_torch.core import kernelgen
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.models import registry
+    from repro_torch.serve import PagedEngine, Request
+    from repro_torch.tune import profile as profile_mod
+    from repro_torch.tune.classes import SizeClass, representative
+    from repro_torch.tune.timer import Measurement
+    tuned = api.named_policy("tuned")
+    cfg = dataclasses.replace(configs.get_smoke("olmo-1b"), dtype="float32")
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    rng = np.random.RandomState(42)
+    n = 6
+    prompts = [rng.randint(0, cfg.vocab, int(rng.randint(2, 28)))
+               for _ in range(n)]
+    maxnew = [int(rng.randint(2, 10)) for _ in range(n)]
+    arrivals = rng.poisson(2, size=n).cumsum()
+
+    def drive(swaps):
+        e = PagedEngine(model, params, tuned, slots=3, max_len=64, eos=-1,
+                        block_size=8, chunk=8, num_blocks=8, device="cuda")
+        t, nxt = 0, 0
+        while nxt < n:
+            while nxt < n and arrivals[nxt] <= t:
+                e.submit(Request(nxt, prompts[nxt], max_new=maxnew[nxt]))
+                nxt += 1
+            if t in swaps:
+                profile_mod.set_active_profile(swaps[t])
+            e.step()
+            t += 1
+        return e.run(), e
+
+    obs.ROUTES.reset()
+    ref, _ = drive({})
+    sig = kernelgen.kernel_table("S", "NN")[0]
+    profs = []
+    for k_us, l_us in ((1.0, 9.0), (9.0, 1.0)):
+        p = profile_mod.DeviceProfile(profile_mod.current_device_kind(),
+                                      mode="cuda")
+        for (_op, letter, cls) in obs.ROUTES.shape_counts():
+            p.record(SizeClass.from_key(f"{letter}/NN/{cls}"),
+                     profile_mod.ProfileEntry(
+                         sig, Measurement(k_us, k_us, k_us, 1),
+                         Measurement(l_us, l_us, l_us, 1), "online"))
+        profs.append(p)
+    iaat_gemm.reset_launch_count()
+    out, e = drive({2: profs[0], 5: profs[1], 8: profs[0]})
+    launches = iaat_gemm.launch_count("iaat_gemm")
+    (op, letter, cls) = next(k for k in obs.ROUTES.shape_counts()
+                             if k[0] == "matmul")
+    sc = SizeClass.from_key(f"{letter}/NN/{cls}")
+    M, N, K = representative(sc)
+    flips = []
+    for p in profs:
+        profile_mod.set_active_profile(p)
+        flips.append(api.route("gemm", (M, N, K), letter, "NN",
+                               policy=tuned).use_kernel)
+    if out != ref or flips != [True, False] or launches <= 0 or \
+            len(e.steps_by_gen) < 3:
+        raise AssertionError(f"f32 smoke swap parity: tokens equal "
+                             f"{out == ref}, decisions {flips}, IAAT "
+                             f"launches {launches}, generations "
+                             f"{dict(e.steps_by_gen)}")
+    return {"requests": n, "identical": True, "iaat_launches": launches,
+            "generations": len(e.steps_by_gen)}
+
+
+def phase_online_serve(torch, params, card):
+    """olmo-1b at full width under ``tuned`` with the online tuner on,
+    from an empty profile, through ``launch.serve.serve(online_tune=True,
+    trace=...)``: at least one background cycle and one swap, merged
+    entries of origin "online" whose kernel times are finite, every
+    request complete, every step under one profile generation (the
+    engine raises otherwise).  Then the same requests with no tuner,
+    from an empty profile again: both tok/s and the requests whose tokens
+    differ (bf16: a count, not a gate).  Then the f32 smoke parity under
+    manual swaps."""
+    from repro_torch import obs
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.tune import profile as profile_mod
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / "serve_trace.json"
+    kw = dict(requests=ONLINE_REQUESTS, slots=4, max_new=ONLINE_MAX_NEW,
+              block_size=16, backend="tuned", seed=0, device="cuda",
+              params=params)
+    with _empty_tune_cache():
+        obs.TRACE.reset()
+        _reset_counts()
+        on = serve_mod.serve("olmo-1b", online_tune=True, trace=path, **kw)
+        launches_on = _counts()
+        tuner = on["tuner"]
+        prof = profile_mod.latest_profile()
+        online = {k: e for k, e in (prof.entries.items() if prof else ())
+                  if e.origin == "online"}
+        timed = {k: e.kernel.median_us for k, e in online.items()
+                 if e.kernel is not None and math.isfinite(
+                     e.kernel.median_us) and e.kernel.median_us > 0}
+        tuner_tickets = (torch.device("cuda", 0),
+                         tuner._stream.cuda_stream) in iaat_gemm._tickets \
+            if tuner._stream is not None else False
+        if tuner.cycles < 1 or tuner.swaps < 1 or not timed:
+            raise AssertionError(f"online serve: {tuner.cycles} cycles, "
+                                 f"{tuner.swaps} swaps, online entries "
+                                 f"{sorted(online)}, timed {timed}")
+        if sorted(on["done"]) != list(range(ONLINE_REQUESTS)):
+            raise AssertionError(f"online serve: served {sorted(on['done'])}")
+        if sum(on["steps_by_gen"].values()) < on["decode_steps"]:
+            raise AssertionError(f"online serve: steps {on['steps_by_gen']}")
+    with _empty_tune_cache():
+        _reset_counts()
+        off = serve_mod.serve("olmo-1b", **kw)
+    differ = sum(on["done"][i] != off["done"][i]
+                 for i in range(ONLINE_REQUESTS))
+    errors = obs.counter("tune.online.errors").value
+    log(f"online serve on {card}: olmo-1b, {ONLINE_REQUESTS} requests x "
+        f"max_new {ONLINE_MAX_NEW} under tuned: tuner on {on['tok_s']:.2f} "
+        f"tok/s ({on['tokens']} tokens in {on['seconds']:.3f}s), off "
+        f"{off['tok_s']:.2f} tok/s ({off['seconds']:.3f}s); {tuner.cycles} "
+        f"cycles, {tuner.swaps} swaps, {errors} errors; online entries "
+        + json.dumps({k: [round(e.kernel.median_us, 2) if e.kernel else
+                          None,
+                          round(e.library.median_us, 2) if e.library else
+                          None, e.prefer_kernel]
+                      for k, e in online.items()})
+        + f"; tuner-stream split tickets {tuner_tickets}; steps per profile "
+        f"generation {json.dumps(on['steps_by_gen'])}; {differ}/"
+        f"{ONLINE_REQUESTS} requests' tokens differ on/off (bf16)")
+    with _empty_tune_cache():
+        parity = _smoke_swap_parity(torch)
+    log(f"online serve: f32 olmo-smoke under tuned, manual swaps between "
+        f"steps: tokens identical to the run with none "
+        f"({parity['requests']} requests, {parity['iaat_launches']} IAAT "
+        f"launches, {parity['generations']} profile generations)")
+    return {"tok_s_on": on["tok_s"], "tok_s_off": off["tok_s"],
+            "seconds_on": on["seconds"], "seconds_off": off["seconds"],
+            "tokens": on["tokens"], "cycles": tuner.cycles,
+            "swaps": tuner.swaps, "errors": errors,
+            "online_entries": {k: e.to_json() for k, e in online.items()},
+            "tuner_stream_tickets": tuner_tickets,
+            "steps_by_gen": on["steps_by_gen"],
+            "launches_on": launches_on, "tokens_differ": differ,
+            "smoke_swap_parity": parity, "trace": str(path)}
+
+
+def phase_online_grouped(torch, card):
+    """One synchronous ``OnlineTuner.cycle()`` on the traffic the moonshot
+    serve left in ``ROUTES`` (its ``batched_gemm`` calls among it), with
+    a budget for every hot class: at least one ``grouped:`` entry is
+    re-timed on the card, with batched launches counted."""
+    from repro_torch.kernels import grouped_gemm
+    from repro_torch.tune import profile as profile_mod
+    from repro_torch.tune.online import OnlineTuner
+    tuner = OnlineTuner(top_k=None)
+    hot = tuner.targets()
+    tuner.budget = 2 * len(hot)         # the library and one candidate each
+    with _empty_tune_cache():
+        b0 = grouped_gemm.launch_count("batched_gemm")
+        t0 = time.perf_counter()
+        rep = tuner.cycle()
+        dt = time.perf_counter() - t0
+        batched = grouped_gemm.launch_count("batched_gemm") - b0
+        prof = profile_mod.latest_profile()
+        grouped = {k: e for k, e in (prof.entries.items() if prof else ())
+                   if k.startswith(profile_mod.GROUPED_PREFIX)
+                   and e.origin == "online" and e.kernel is not None}
+    if not grouped or batched <= 0 or not rep.swapped:
+        raise AssertionError(f"online grouped: {rep}, grouped entries "
+                             f"{sorted(grouped)}, batched launches {batched}")
+    log(f"online grouped on {card}: one cycle over {len(hot)} hot classes "
+        f"of moonshot's traffic in {dt:.3f}s: retuned {rep.retuned}, "
+        f"{rep.timings} timings, {batched} batched launches; grouped "
+        + json.dumps({k: [round(e.kernel.median_us, 2),
+                          round(e.library.median_us, 2) if e.library else
+                          None, e.sig.name if e.sig else None]
+                      for k, e in grouped.items()}))
+    return {"retuned": rep.retuned, "timings": rep.timings,
+            "seconds": dt, "batched_launches": batched,
+            "grouped": {k: e.to_json() for k, e in grouped.items()}}
+
+
+def phase_trace(torch, online, card):
+    """The Perfetto file of the online serve: it parses, has a track per
+    slot, flow-linked request slices and a tuner track with at least one
+    ``tune_cycle`` slice; ``python -m repro_torch.obs trace IN OUT``
+    re-exports it identically.  Prints the per-request summary."""
+    import os
+    from repro_torch.obs import trace as trace_mod
+    path = pathlib.Path(online["trace"])
+    doc = json.loads(path.read_text())
+    te = doc["traceEvents"]
+    tracks = {(e["pid"], e.get("tid")): e["args"]["name"] for e in te
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    slots = {v for v in tracks.values() if v.startswith("slot ")}
+    req = [e for e in te if e["ph"] == "X" and e.get("cat") == "request"]
+    flows = {e["id"] for e in te if e["ph"] in ("s", "t", "f")}
+    cycles = [e for e in te if e["ph"] == "X" and e["name"] == "tune_cycle"
+              and tracks.get((e["pid"], e["tid"])) == "online tuner"]
+    rids = {e["args"]["rid"] for e in req}
+    if slots != {f"slot {s}" for s in range(4)} or \
+            rids != set(range(ONLINE_REQUESTS)) or flows != rids or \
+            not cycles:
+        raise AssertionError(f"trace: slot tracks {sorted(slots)}, request "
+                             f"slices of {sorted(rids)}, flows "
+                             f"{sorted(flows)}, {len(cycles)} tune cycles")
+    again = OUT_DIR / "serve_trace_again.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-m", "repro_torch.obs", "trace",
+                    str(path), str(again)], check=True, env=env,
+                   capture_output=True, text=True, timeout=300)
+    if json.loads(again.read_text()) != doc:
+        raise AssertionError("trace: python -m repro_torch.obs trace IN OUT "
+                             "did not re-export the file identically")
+    per = trace_mod.per_request(trace_mod.load_events(path))
+    ttft = sorted(r["ttft_us"] for r in per.values() if "ttft_us" in r)
+    summ = trace_mod.summary(per)
+    summ.update(ttft_p50_us=ttft[len(ttft) // 2],
+                ttft_p99_us=ttft[min(len(ttft) - 1,
+                                     math.ceil(0.99 * len(ttft)) - 1)],
+                tune_cycles=len(cycles),
+                tune_cycle_ms=[round(e["dur"] / 1e3, 3) for e in cycles])
+    log(f"trace on {card}: {len(te)} trace events, {len(slots)} slot "
+        f"tracks, {len(req)} request slices, {len(cycles)} tune_cycle "
+        f"slices; re-exported identically; per request "
+        + json.dumps(summ) + f"; tok/s tuner on {online['tok_s_on']:.2f}, "
+        f"off {online['tok_s_off']:.2f}")
+    return summ
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2442,6 +2805,8 @@ def main():
         report["card"] = timed("card", phase_card)
         report["flash_build"] = timed("build", phase_build)
         max_err = timed("check", phase_check, torch)
+        report["concurrent_split"] = timed(
+            "concurrent split", phase_concurrent_split, torch, mcfg)
         report["grid_check"] = timed("grid check", phase_grid_check, torch)
         report["pack"] = timed("pack baseline", phase_pack, torch)
         report["flash_check"] = timed("flash check", phase_flash_check,
@@ -2455,6 +2820,10 @@ def main():
                                      cfg, params)
         report["wave_step"] = timed("wave step", phase_wave_step, torch,
                                     cfg, params)
+        report["online_serve"] = timed("online serve", phase_online_serve,
+                                       torch, params, report["card"])
+        report["trace"] = timed("trace", phase_trace, torch,
+                                report["online_serve"], report["card"])
         del params
         torch.cuda.empty_cache()
         grouped_err, ragged_launches = timed("grouped check",
@@ -2462,6 +2831,9 @@ def main():
         report["moe_serve"], params = timed(
             "moe serve", phase_serve, torch, MOE_ARCH, mcfg, 5, 8,
             ["batched_gemm", "iaat_gemm"])
+        report["online_grouped"] = timed("online grouped",
+                                         phase_online_grouped, torch,
+                                         report["card"])
         report["moe_step"] = timed("moe step", phase_step, torch, mcfg,
                                    params)
         del params

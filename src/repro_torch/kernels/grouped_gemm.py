@@ -192,7 +192,10 @@ def _split(dev, letter: str, slices: int, tiles: int, rows: int, N: int,
     acc = torch.float64 if letter == "D" else torch.float32
     # held until the launch is queued; the stream orders any reuse
     ws = torch.empty((slices, rows, N), dtype=acc, device=dev)
-    return ws, ws.data_ptr(), iaat_gemm._tickets_on(dev).data_ptr()
+    # the tickets of the stream the launch goes to (_call's)
+    tickets = iaat_gemm._tickets_on(
+        dev, torch._C._cuda_getCurrentRawStream(dev.index))
+    return ws, ws.data_ptr(), tickets.data_ptr()
 
 
 def _call(name: str, letter: str, path: str, slices: int, x,

@@ -15,7 +15,9 @@ one :class:`KernelSig`.
   region may be cut into K slices (the plan's
   ``Region.slices``): one launch still, its blocks summing into a
   ``torch.empty`` workspace, the last block of each output tile adding
-  the slices in order (per-tile tickets, one zeroed array per device).
+  the slices in order (per-tile tickets, one zeroed array per device and
+  stream: split launches on two streams, the engine's and the online
+  tuner's, never share a ticket).
 * On a CPU tensor it runs :func:`gemm_region_plain`, the plain PyTorch
   version (f32/f64 accumulation, one cast; for C/Z the same Karatsuba
   planes and complex epilogue as the kernel): the tests' reference, and
@@ -58,8 +60,10 @@ _paths = {"ring": 0, "scalar": 0, "split": 0}
 #: it counts under, per load mode
 _MODES = {0: ("scalar", "scalar"), 1: ("ring_n", "ring"),
           2: ("ring_k", "ring")}
-#: one zeroed ticket per output tile of a split launch, per device; a
-#: split grid underfills the card, so it has fewer tiles than this
+#: one zeroed ticket per output tile of a split launch, per (device,
+#: stream); a split grid underfills the card, so it has fewer tiles than
+#: this.  The tickets reset themselves at the end of each launch, so
+#: only launches on one stream, which run in order, may share them.
 _TICKETS_LEN = 1024
 _tickets = {}
 
@@ -107,10 +111,13 @@ def load_mode(opa: torch.Tensor, opb: torch.Tensor) -> int:
     return 0
 
 
-def _tickets_on(dev: torch.device) -> torch.Tensor:
-    t = _tickets.get(dev)
+def _tickets_on(dev: torch.device, stream: int) -> torch.Tensor:
+    """The ticket array of split launches on ``stream`` (a raw stream
+    handle) of ``dev``, zeroed on first use on that stream."""
+    key = (dev, stream)
+    t = _tickets.get(key)
     if t is None:
-        t = _tickets[dev] = torch.zeros(_TICKETS_LEN, dtype=torch.int32,
+        t = _tickets[key] = torch.zeros(_TICKETS_LEN, dtype=torch.int32,
                                         device=dev)
     return t
 
@@ -230,13 +237,16 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
     if slices < 1:
         raise ValueError(f"{sig.name}: {slices} K slices")
     mode = load_mode(opa, opb)
+    # the launch goes to a's current stream (the raw handle: a Stream
+    # object a call costs host time at decode)
+    stream = torch._C._cuda_getCurrentRawStream(idx)
     ws = None
     if slices > 1:
         tiles = -(-M // sig.bm) * -(-N // sig.bn)
         if tiles > _TICKETS_LEN:
             raise ValueError(f"{sig.name}: a split grid of {tiles} "
                              f"tiles exceeds the {_TICKETS_LEN} tickets")
-        tickets = _tickets_on(dev)
+        tickets = _tickets_on(dev, stream)
         # held until the launch is queued; the stream orders any reuse
         ws = torch.empty((slices, M, N), dtype=sig.acc_dtype, device=dev)
     tail = (float(alpha), float(beta), slices,
@@ -250,13 +260,11 @@ def _launch(sig: KernelSig, a, b, c, alpha, beta, out, slices=1):
             None if c is None else c.data_ptr(), sc[0], sc[1],
             out.data_ptr(), so[0], so[1], M, N, K, *tail)
     fn = _entry(sig, mode)
-    # the launch goes to the current device and a's current stream (the
-    # raw handle: a Stream object a call costs host time at decode)
     if idx == torch.cuda.current_device():
-        rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+        rc = fn(*args, stream)
     else:
         with torch.cuda.device(dev):
-            rc = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+            rc = fn(*args, stream)
     if rc == -1:
         raise RuntimeError(f"{sig.name}: no such instance in the built "
                            f"kernel table")

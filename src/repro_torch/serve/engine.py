@@ -18,6 +18,13 @@ the slots that are not decoding, and ``SlotStateStore`` records which
 request owns which row.  The step functions run eagerly: PyTorch has no ``jit`` to
 stage, and the pools are updated in place instead of donated.
 
+``PagedEngine(tuner=)`` takes a ``tune.online.OnlineTuner``: ``run()``
+starts it and stops it on drain or on a raise.  Routing runs on every
+call here (the reference routes at trace time), so each step runs under
+``tune.profile.pinned()``: a profile the tuner publishes mid-step is
+installed at the next step boundary, and :attr:`PagedEngine.steps_by_gen`
+counts the steps run under each profile generation.
+
 :class:`ContinuousBatcher` is the wave-based reference: a wave of up to
 ``slots`` requests shares one left-padded prefill (``lm.prefill``, whose
 attention runs the flash kernel; the ssm family's prompt runs the serving
@@ -42,6 +49,7 @@ from repro_torch.api import Policy
 from repro_torch.models.registry import Model
 from repro_torch.serve import sched
 from repro_torch.serve.paged import CacheMap, OutOfBlocks, SlotStateStore
+from repro_torch.tune import profile as profile_mod
 
 
 def sample(logits, generator: torch.Generator, temperature: float = 0.0):
@@ -71,7 +79,8 @@ def _round_up(n: int, m: int) -> int:
 
 class PagedEngine:
     """Slot-level continuous batching over a paged KV cache (see module
-    docstring).  ``device`` defaults to the card; tests pass ``"cpu"``."""
+    docstring).  ``device`` defaults to the card; tests pass ``"cpu"``.
+    ``tuner`` is an optional online tuner run for ``run()``'s lifetime."""
 
     TICK_SAMPLE = 8
 
@@ -79,9 +88,13 @@ class PagedEngine:
                  *, slots: int = 4, max_len: int = 256, eos: int = 2,
                  temperature: float = 0.0, seed: int = 0,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 chunk: int = 32, drain_every: int = 4, device="cuda"):
+                 chunk: int = 32, drain_every: int = 4, tuner=None,
+                 device="cuda"):
         be = be if be is not None else api.current_policy()
         self.model, self.params, self.be = model, params, be
+        self.tuner = tuner
+        #: profile generation -> steps run under it (one per step)
+        self.steps_by_gen: Dict[int, int] = collections.Counter()
         self.device = torch.device(device)
         self.slots, self.max_len, self.eos = slots, max_len, eos
         self.temperature, self.chunk = temperature, chunk
@@ -134,7 +147,16 @@ class PagedEngine:
         self.scheduler.submit(seq, fit_tokens=worst)
 
     def step(self) -> bool:
-        """One scheduler iteration; False when fully idle."""
+        """One scheduler iteration under one tuning profile; False when
+        fully idle."""
+        with profile_mod.pinned() as gen:
+            worked = self._step()
+            if profile_mod.generation() != gen:
+                raise RuntimeError("a profile swap reached a step in flight")
+        self.steps_by_gen[gen] += 1
+        return worked
+
+    def _step(self) -> bool:
         worked = False
         now = time.perf_counter()
         for seq in self.scheduler.admit():
@@ -169,21 +191,29 @@ class PagedEngine:
         return worked
 
     def run(self) -> Dict[int, List[int]]:
-        stall = 0
-        while True:
-            if self.step():
-                stall = 0
-                continue
-            if self._pending:
-                self._drain()
-                continue
-            if not self.scheduler.has_work():
-                break
-            stall += 1
-            if stall > 10000:   # fail loudly, never hang
-                raise RuntimeError("paged engine stalled: "
-                                   f"{self.scheduler.active()} live, "
-                                   f"{len(self.scheduler.queue)} queued")
+        if self.tuner is not None:
+            self.tuner.start()      # a no-op under REPRO_ONLINE_TUNE=0
+        try:
+            stall = 0
+            while True:
+                if self.step():
+                    stall = 0
+                    continue
+                if self._pending:
+                    self._drain()
+                    continue
+                if not self.scheduler.has_work():
+                    break
+                stall += 1
+                if stall > 10000:   # fail loudly, never hang
+                    raise RuntimeError("paged engine stalled: "
+                                       f"{self.scheduler.active()} live, "
+                                       f"{len(self.scheduler.queue)} queued")
+        finally:
+            # the tuner thread joins before run() returns, on drain or on
+            # a raise: no timing work outlives the engine loop
+            if self.tuner is not None:
+                self.tuner.stop()
         return self.done
 
     # -- internals ---------------------------------------------------------

@@ -13,8 +13,9 @@ persists the winners as a versioned per-device :class:`DeviceProfile`
 paths alike, falling back to the analytical criterion for unmeasured
 classes.
 
-``python -m repro_torch.tune`` runs the sweep and writes the profile.
-The reference's online re-tuner (``online.py``) is not ported yet.
+``python -m repro_torch.tune`` runs the sweep and writes the profile;
+``online.py``'s :class:`OnlineTuner` re-times the classes that serving
+routes, in the background, and publishes the merged profile.
 """
 from repro_torch.tune.classes import SizeClass, representative, size_class
 from repro_torch.tune.profile import (DeviceProfile, ProfileEntry,
@@ -24,6 +25,8 @@ from repro_torch.tune.profile import (DeviceProfile, ProfileEntry,
 from repro_torch.tune.search import (TuneTarget, budgeted_sweep, sweep,
                                      tune_class, tune_grouped_class)
 from repro_torch.tune.timer import Measurement, measure
+from repro_torch.tune.online import CycleReport, OnlineTuner, \
+    weighted_targets
 
 __all__ = [
     "SizeClass", "size_class", "representative",
@@ -31,4 +34,5 @@ __all__ = [
     "clear_active_profile", "default_profile_path", "set_active_profile",
     "sweep", "tune_class", "tune_grouped_class", "budgeted_sweep",
     "TuneTarget", "Measurement", "measure",
+    "OnlineTuner", "CycleReport", "weighted_targets",
 ]

@@ -20,16 +20,22 @@ one device and mode entry-wise, keeping the better-measured entry.
 
 The *active* profile is process-global state that the Router consults
 under ``Policy(backend="tuned")``; it is loaded lazily from the default
-path on first use and can be pinned or cleared by tests and the CLI.
+path on first use and can be set or cleared by tests, the CLI and the
+online tuner.  Each install bumps :func:`generation`.  The port routes
+eagerly on every call, so a swap from another thread could land in the
+middle of an engine step; :func:`pinned` holds the profile for a step
+and installs a swap published meanwhile when the step ends: no step sees
+two profiles.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import pathlib
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
@@ -254,50 +260,105 @@ def _check_applies(p: DeviceProfile) -> None:
 _UNSET = object()
 _active = _UNSET                  # _UNSET: not yet loaded; None: known-absent
 _active_lock = threading.Lock()
+_generation = 0                   # installs so far
+_pins = 0                         # pinned() bodies running
+_NONE = object()
+_pending = _NONE                  # the last swap published under a pin
 
 
-def _profile_tag(p: Optional[DeviceProfile]) -> Optional[str]:
-    return f"{p.device_kind}/{p.mode}:{len(p)}" if p is not None else None
+def _profile_tag(p) -> Optional[str]:
+    return f"{p.device_kind}/{p.mode}:{len(p)}" \
+        if isinstance(p, DeviceProfile) else None
 
 
-def set_active_profile(p: Optional[DeviceProfile]) -> None:
-    """Pin ``p`` (None: no profile) as what tuned routing reads; raises if
-    ``p`` was timed on another device or mode than this process's."""
-    global _active
-    if p is not None:
-        _check_applies(p)
-    with _active_lock:
-        _active = p
+def _install_locked(p) -> None:
+    """Make ``p`` (a profile, None, or _UNSET: reload from disk) what
+    routing reads; the caller holds ``_active_lock``.  The memo is staled
+    under the lock, so a pin never starts between the swap and that."""
+    global _active, _generation
+    _active = p
+    _generation += 1
     # decisions memoized by the route log may have read the old profile
     obs.ROUTES.invalidate()
     obs.TRACE.emit("PROFILE_SWAP", arg=_profile_tag(p))
+
+
+def _publish(p) -> None:
+    global _pending
+    with _active_lock:
+        if _pins:
+            _pending = p          # installed when the last pin ends
+        else:
+            _install_locked(p)
+
+
+def _active_locked() -> Optional[DeviceProfile]:
+    if _active is _UNSET:
+        path = default_profile_path()
+        try:
+            p = DeviceProfile.load(path) if path.exists() else None
+            if p is not None:
+                _check_applies(p)
+        except (OSError, ValueError, KeyError, json.JSONDecodeError):
+            p = None
+        _install_locked(p)
+    return _active
+
+
+def set_active_profile(p: Optional[DeviceProfile]) -> None:
+    """Publish ``p`` (None: no profile) as what tuned routing reads; raises
+    if ``p`` was timed on another device or mode than this process's.
+    Under a :func:`pinned` body it takes effect when the body ends."""
+    if p is not None:
+        _check_applies(p)
+    _publish(p)
 
 
 def clear_active_profile() -> None:
     """Forget the active profile AND the load attempt (the next tuned
     routing re-reads the disk: call after changing the cache dir or
     re-tuning)."""
-    global _active
-    with _active_lock:
-        _active = _UNSET
-    obs.ROUTES.invalidate()
-    obs.TRACE.emit("PROFILE_SWAP", arg=None)
+    _publish(_UNSET)
 
 
 def active_profile() -> Optional[DeviceProfile]:
     """The profile tuned routing consults; lazily loaded from this
     device's and mode's default path on first call, None (the analytical
     fallback) if absent, unreadable or of another device."""
-    global _active
     with _active_lock:
-        if _active is _UNSET:
-            path = default_profile_path()
-            try:
-                _active = DeviceProfile.load(path) if path.exists() else None
-                if _active is not None:
-                    _check_applies(_active)
-            except (OSError, ValueError, KeyError, json.JSONDecodeError):
-                _active = None
-            obs.ROUTES.invalidate()
-            obs.TRACE.emit("PROFILE_SWAP", arg=_profile_tag(_active))
-        return _active
+        return _active_locked()
+
+
+def latest_profile() -> Optional[DeviceProfile]:
+    """The profile published last, whether installed or still pending
+    behind a pin (the installed one when a clear is pending): what the
+    online tuner merges into, so a pending swap's entries are kept."""
+    with _active_lock:
+        if _pending is _NONE or _pending is _UNSET:
+            return _active_locked()
+        return _pending
+
+
+def generation() -> int:
+    """Installs of the active profile so far."""
+    return _generation
+
+
+@contextlib.contextmanager
+def pinned() -> Iterator[int]:
+    """Hold the active profile for the body (one engine step): a profile
+    published meanwhile, from any thread, is installed when the last pin
+    ends.  Yields the generation the body routes under."""
+    global _pins, _pending
+    with _active_lock:
+        _active_locked()          # resolve a first lazy load now
+        _pins += 1
+        gen = _generation
+    try:
+        yield gen
+    finally:
+        with _active_lock:
+            _pins -= 1
+            if not _pins and _pending is not _NONE:
+                p, _pending = _pending, _NONE
+                _install_locked(p)

@@ -15,6 +15,11 @@ candidates plus the library.  The prior never decides, it only prunes.
   ``api.install`` does).
 * Grouped classes time ``batched_gemm`` with each candidate's blocks
   against the executor's library einsum.
+
+A sweep makes its operands, launches and times on the caller's current
+CUDA stream and never synchronises the device, so
+:class:`repro_torch.tune.online.OnlineTuner`, which enters its own stream
+around :func:`budgeted_sweep`, leaves the serving stream alone.
 """
 from __future__ import annotations
 

@@ -4,9 +4,11 @@ Counterpart of ``repro/tune/timer.py``.  ``warmup`` calls are discarded
 (they also build the CUDA kernels and set up cuBLAS); the statistic is
 the *median* of ``reps`` repeats, immune to one preemption.
 
-* On the card each repeat is bracketed by two CUDA events on the current
-  stream and closed by ``torch.cuda.synchronize()``: the time is the
-  device's, not the enqueue's.
+* On the card each repeat is bracketed by two CUDA events on the
+  caller's current stream and closed by waiting on the second event:
+  the time is the device's, not the enqueue's.  Nothing waits for the
+  whole device, so the online tuner, timing on its own stream, leaves
+  the serving stream alone (its kernels may share the SMs meanwhile).
 * On the CPU (the plain versions) each repeat is timed with
   ``time.perf_counter``.  Such a time orders the candidates of a CPU
   sweep and says nothing about the card; its profile is marked
@@ -64,8 +66,8 @@ def _median(xs) -> float:
 def measure(fn: Callable[[], Any], *, device="cpu", warmup: int = 1,
             reps: int = 5) -> Measurement:
     """Time ``fn()`` on ``device``: median-of-``reps`` microseconds after
-    ``warmup`` discarded calls (CUDA events on the card, the host clock on
-    the CPU)."""
+    ``warmup`` discarded calls (CUDA events on the caller's current
+    stream on the card, the host clock on the CPU)."""
     if reps < 1:
         raise ValueError("reps must be >= 1")
     cuda = torch.device(device).type == "cuda"
@@ -73,14 +75,15 @@ def measure(fn: Callable[[], Any], *, device="cpu", warmup: int = 1,
         fn()
     times = []
     if cuda:
-        torch.cuda.synchronize()
+        # e0 is reached once the warm-up queued before it has run
+        stream = torch.cuda.current_stream(device)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         for _ in range(reps):
-            e0.record()
+            e0.record(stream)
             fn()
-            e1.record()
-            torch.cuda.synchronize()
+            e1.record(stream)
+            e1.synchronize()
             times.append(e0.elapsed_time(e1) * 1e3)
     else:
         for _ in range(reps):
