@@ -132,9 +132,10 @@ fails the run:
             array a stream (run after phase 3);
 23. online serve — olmo-1b at full width under ``tuned`` with the online
             tuner (launch.serve.serve(online_tune=True, trace=...)), from
-            an empty profile: at least one background cycle and one swap,
-            merged online entries with finite kernel times, every request
-            done, every step under one profile generation; then the same
+            an empty profile: at least one cycle between the engine's
+            steps and one swap, merged online entries with finite kernel
+            times, every request done, every step under one profile
+            generation; then the same
             requests with no tuner (tok/s of both, requests whose bf16
             tokens differ); then olmo-smoke in f32 with manual swaps
             between steps, token-identical to a run with none (run after
@@ -146,7 +147,42 @@ fails the run:
             p99, decode stall);
 25. online grouped — one synchronous OnlineTuner.cycle() on the traffic
             the moonshot serve left in ROUTES: at least one grouped:
-            entry re-timed on the card (run after phase 7).
+            entry re-timed on the card (run after phase 7);
+26. gemma3 — gemma3-1b at full width and depth (26 layers, 16 padded
+            heads of 256, 5:1 local:global with window 512, a tied
+            262144-entry vocabulary) on PagedEngine and on the wave
+            ContinuousBatcher under ``auto`` and the forced kernel, one
+            1100-token wave prompt past the window; a paged decode step
+            and the long prompt's prefill and decode steps against the
+            plain arithmetic; flash launches at D 256 and the vocabulary
+            head's IAAT launches counted;
+27. dense — glm4-9b and smollm-360m at full width and depth on
+            PagedEngine under both policies, a decode step each against
+            the plain arithmetic;
+28. mixtral — mixtral-8x22b at full width and 4 of its 56 layers (the
+            rest does not fit the card) on PagedEngine, every expert GEMM
+            a batched launch on the mma ring; a decode step against the
+            plain arithmetic;
+29. zamba2 — zamba2-7b at full width and depth (81 mamba layers, the
+            shared attention block applied 14 times) on PagedEngine (no
+            SSD or flash launch while serving), then forward_train over 2
+            x 2048 tokens under ``auto`` (81 SSD scans, 14 flash launches
+            at D 112 padded to 128 on the tensor cores) against the plain
+            arithmetic, in bf16 and with the weights widened to f32;
+30. vlm   — internvl2-2b at full width: a short paged serve of text, then
+            one prefill of 1024 fake_frontend embeddings and a 64-token
+            prompt and 4 decode steps under ``auto`` against the plain
+            arithmetic;
+31. slice kernels — the IAAT kernel on gemma3's vocabulary head and
+            glm4's projections at M 4, flash at gemma3's D 256 / window
+            512 and zamba2's D 112, batched_gemm at mixtral's experts and
+            the SSD scan at zamba2's d_state 64: kernel, plain and library
+            times (loop and device) and the bound, attached to the
+            ``kernels`` line's entries as ``slice_shapes``.
+Phase 10 also holds head dims 20 and 112 (zero-padded to 32 and 128)
+against the plain version, and phase 23 times each installed online
+verdict again on the idle card: it fails where the installed path takes
+twice the other path's time or more.
 
 The last line is {"ok": true, "device": {...}}; it is printed only when
 every phase passed.  Without CUDA, or without the repository around it,
@@ -647,11 +683,32 @@ def _main_operands(torch, g, M, K, N, tied, copies=1):
     return x, ws
 
 
+#: IAAT launches made inside ``lm._unembed`` (the vocabulary head), counted
+#: by the wrapper :func:`_count_vocab_head` installs
+_HEAD = {"iaat": 0}
+
+
+def _count_vocab_head():
+    """Wraps ``lm._unembed`` so that the IAAT launches of the vocabulary
+    head are counted apart (``_counts()["iaat_vocab_head"]``)."""
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.models import lm
+    unembed = lm._unembed
+
+    def counted(*a, **kw):
+        n0 = iaat_gemm.launch_count("iaat_gemm")
+        out = unembed(*a, **kw)
+        _HEAD["iaat"] += iaat_gemm.launch_count("iaat_gemm") - n0
+        return out
+    lm._unembed = counted
+
+
 def _reset_counts():
     """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
     from repro_torch.kernels import (flash_attention, grouped_gemm,
                                      iaat_gemm, ssd)
+    _HEAD["iaat"] = 0
     obs.ROUTES.reset()
     iaat_gemm.reset_launch_count()
     grouped_gemm.reset_launch_count()
@@ -673,6 +730,7 @@ def _counts():
             "iaat_ring": iaat_gemm.path_count("ring"),
             "iaat_scalar": iaat_gemm.path_count("scalar"),
             "iaat_split": iaat_gemm.path_count("split"),
+            "iaat_vocab_head": _HEAD["iaat"],
             "flash_tc": flash_attention.launch_count("flash_attention_tc"),
             "flash_cuda_core": flash_attention.launch_count(
                 "flash_attention"),
@@ -681,23 +739,25 @@ def _counts():
                for p in ("ring", "scalar", "split", "mma")}}
 
 
-def phase_serve(torch, arch, cfg, requests, max_new, kernels):
-    """``arch`` at full width serves ``requests`` prompts under ``auto``
-    and under the forced kernel, after an uncounted warm-up; every kernel
-    in ``kernels`` must have launched in both runs.  Returns the runs'
-    numbers and the weights."""
+def phase_serve(torch, arch, cfg, requests, max_new, kernels, params=None):
+    """``arch`` (as ``cfg``: at full width, at the depth ``cfg`` has)
+    serves ``requests`` prompts under ``auto`` and under the forced
+    kernel, after an uncounted warm-up; every kernel in ``kernels`` must
+    have launched in both runs.  Returns the runs' numbers and the weights
+    (``params`` when given, else drawn from seed 0)."""
     from repro_torch import obs
     from repro_torch.launch import serve as serve_mod
     runs = {}
     # warm-up, not counted: weights, cuBLAS and allocator set-up, first
     # launches
     params = serve_mod.serve(arch, requests=1, max_new=2, backend="auto",
-                             seed=0, device="cuda")["params"]
+                             seed=0, device="cuda", cfg=cfg,
+                             params=params)["params"]
     for backend in ("auto", "kernel"):
         _reset_counts()
         r = serve_mod.serve(arch, requests=requests, slots=4,
                             max_new=max_new, block_size=16, backend=backend,
-                            seed=0, device="cuda", params=params)
+                            seed=0, device="cuda", params=params, cfg=cfg)
         launches = _counts()
         to_kernel, routed = obs.ROUTES.kernel_share()
         params = r["params"]
@@ -901,45 +961,133 @@ def _device_ms(torch, fn, reps, match=None, per_call=None):
     return None, 0
 
 
+def _flash_bound(B, Hq, Hkv, S, D, window=None):
+    """(flops, bytes) of causal attention over S tokens, only the (query,
+    key) pairs the window keeps: 4 D flops a pair and head; q and o of
+    every q head, k and v of every KV head, each moved once."""
+    pairs = sum(min(i + 1, window or S) for i in range(S))
+    return 4 * D * pairs * B * Hq, 2 * 2 * B * S * D * (Hq + Hkv)
+
+
+def _flash_row(torch, B, Hq, Hkv, S, D, window, what):
+    """Flash kernel / plain / library times (loop and device) and the
+    bound at B x Hq heads (Hkv KV heads) x S x D, bf16, causal, with the
+    window when given.  The library call is
+    ``scaled_dot_product_attention``, ``is_causal`` without a window and
+    the window as a boolean mask, timed here only; its output is first
+    compared with the plain version (logged).  The bound is
+    :func:`_flash_bound`'s."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn((B, Hq, S, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, S, D), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    i = torch.arange(S, device="cuda")
+    keep = i[None, :] <= i[:, None]
+    if window:
+        keep &= i[None, :] > i[:, None] - window
+    kw = dict(window=window)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    ab = _flash_err(torch, fa.flash_attention(q, k, v, **kw), want, what)
+
+    def lib(i):
+        # the causal mask alone as is_causal (SDPA's flash backend), a
+        # window as a boolean mask
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep if window else None,
+            is_causal=not window, enable_gqa=Hq != Hkv)
+    _, lib_rel = _rel_err(lib(0), want)
+    t = {"ms": _time_ms(torch, lambda i: fa.flash_attention(q, k, v, **kw),
+                        20),
+         "plain_ms": _time_ms(torch, lambda i: fa.flash_attention_plain(
+             q, k, v, **kw), 5),
+         "library_ms": _time_ms(torch, lib, 20),
+         "device_ms": _device_ms(torch, lambda i: fa.flash_attention(
+             q, k, v, **kw), 10, "flash_attention")[0],
+         "library_device_ms": _device_ms(torch, lib, 10)[0]}
+    flops, nbytes = _flash_bound(B, Hq, Hkv, S, D, window)
+    t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
+    row = {"kernel": "flash_attention", "at": what, "B": B, "Hq": Hq,
+           "Hkv": Hkv, "S": S, "D": D, "window": window,
+           "launched_at_D": fa.padded_head_dim(D),
+           "instance": fa.kernel_for(torch.bfloat16, fa.padded_head_dim(D)),
+           **t, "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "flops": flops, "bytes": nbytes, "max_abs_err": ab,
+           "library_rel_err": lib_rel}
+    log(f"kernel time flash_attention {what}: B={B} Hq={Hq} Hkv={Hkv} S={S} "
+        f"D={D} (launched at {row['launched_at_D']}, {row['instance']}) "
+        f"window {window}: kernel {t['ms']:.4f} ms (device "
+        f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, SDPA "
+        f"{t['library_ms']:.4f} ms (device {t['library_device_ms']} "
+        f"ms, rel err vs plain {lib_rel:.3g}), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err {ab:.4g}")
+    return row
+
+
+def _iaat_row(torch, M, K, N, tied, what):
+    """IAAT kernel (through ``api.matmul`` under the forced kernel) / plain
+    / torch.matmul times (loop and device) and the bound at (M x K) @ (K
+    x N), bf16, the weight (``tied``: an (N, K) embedding read through
+    its .T view) cycled through enough copies (> 2 x the 50 MB L2) that
+    every call reads it from HBM; the kernel's first call is held to the
+    plain version and must take the cp.async ring."""
+    from repro_torch import api
+    from repro_torch.core import cost, kernelgen
+    from repro_torch.kernels import iaat_gemm
+    kern = api.Policy(backend="kernel")
+    sig = kernelgen.kernel_table("H", "NN")[0]
+    g = torch.Generator(device="cuda").manual_seed(37)
+    copies = max(1, math.ceil(110e6 / (K * N * 2)))
+    x, ws = _main_operands(torch, g, M, K, N, tied, copies=copies)
+    n = len(ws)
+    reps = max(20, 2 * n)
+    _reset_counts()
+    got = api.matmul(x, ws[0], policy=kern)
+    launches = _counts()
+    ab, rel = _rel_err(got, iaat_gemm.gemm_region_plain(sig, x, ws[0]))
+    if not rel <= TOL["H"] or launches["iaat_gemm"] < 1 or \
+            launches["iaat_scalar"]:
+        raise AssertionError(f"IAAT {what}: rel err {rel}, launches "
+                             f"{launches}")
+    t = {"ms": _time_ms(torch, lambda i: api.matmul(x, ws[i % n],
+                                                    policy=kern), reps),
+         "plain_ms": _time_ms(torch, lambda i: iaat_gemm.gemm_region_plain(
+             sig, x, ws[i % n]), reps),
+         "library_ms": _time_ms(torch, lambda i: torch.matmul(x, ws[i % n]),
+                                reps),
+         "device_ms": _device_ms(torch, lambda i: api.matmul(
+             x, ws[i % n], policy=kern), reps, "iaat_gemm_kernel")[0],
+         "library_device_ms": _device_ms(torch, lambda i: torch.matmul(
+             x, ws[i % n]), reps)[0]}
+    bound = cost.gemm_roofline(M, N, K, "H")
+    row = {"kernel": "iaat_gemm", "at": what, "M": M, "K": K, "N": N,
+           "tied": tied, **t, "bound_ms": bound.seconds * 1e3,
+           "bound_by": bound.bound, "launches_a_call":
+           launches["iaat_gemm"], "split_launches": launches["iaat_split"],
+           "rel_err": rel}
+    log(f"kernel time iaat_gemm {what}: H M={M} K={K} N={N} tied={tied}: "
+        f"kernel {t['ms']:.4f} ms (device {t['device_ms']} ms; "
+        f"{launches['iaat_gemm']} launches a call, {launches['iaat_split']} "
+        f"split), plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f}"
+        f" ms (device {t['library_device_ms']} ms), bound "
+        f"{row['bound_ms']:.4f} ms ({bound.bound})")
+    return row
+
+
 def phase_kernels(torch, cfg, launches, max_abs_err):
     """Kernel / plain / library times and the bound at every main-path
     shape, each weight cycled through enough copies (> 2 x the 50 MB L2)
     that every call reads it from HBM as the decode step does.  The line's
     numbers are one olmo-1b decode step's routed GEMMs at M=4 (the 7
     projections x 16 layers, plus the tied unembed), summed."""
-    from repro_torch import api
-    from repro_torch.core import cost, kernelgen
-    from repro_torch.kernels import iaat_gemm
-    kern = api.Policy(backend="kernel")
-    sig = kernelgen.kernel_table("H", "NN")[0]
+    from repro_torch.core import cost
     g = torch.Generator(device="cuda").manual_seed(3)
-    rows = []
-    for M in (4, 32):
-        for (K, N, tied) in MAIN_SHAPES:
-            wbytes = K * N * 2
-            copies = max(1, math.ceil(110e6 / wbytes))
-            x, ws = _main_operands(torch, g, M, K, N, tied, copies=copies)
-            n = len(ws)
-            reps = max(20, 2 * n)
-            t_k = _time_ms(torch, lambda i: api.matmul(x, ws[i % n],
-                                                       policy=kern), reps)
-            t_p = _time_ms(torch, lambda i: iaat_gemm.gemm_region_plain(
-                sig, x, ws[i % n]), reps)
-            t_l = _time_ms(torch, lambda i: torch.matmul(x, ws[i % n]), reps)
-            d_k, _ = _device_ms(torch, lambda i: api.matmul(
-                x, ws[i % n], policy=kern), reps, "iaat_gemm_kernel")
-            d_l, _ = _device_ms(torch, lambda i: torch.matmul(x, ws[i % n]),
-                                reps)
-            bound = cost.gemm_roofline(M, N, K, "H")
-            rows.append({"M": M, "K": K, "N": N, "tied": tied,
-                         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                         "device_ms": d_k, "library_device_ms": d_l,
-                         "bound_ms": bound.seconds * 1e3,
-                         "bound_by": bound.bound})
-            log(f"kernel time H M={M} K={K} N={N} tied={tied}: kernel "
-                f"{t_k:.4f} ms (device {d_k} ms), plain {t_p:.4f} ms, "
-                f"library {t_l:.4f} ms (device {d_l} ms), bound "
-                f"{bound.seconds * 1e3:.4f} ms ({bound.bound})")
+    rows = [_iaat_row(torch, M, K, N, tied, f"{cfg.name} M={M}")
+            for M in (4, 32) for (K, N, tied) in MAIN_SHAPES]
     # one decode step at M=4: per layer q,k,v,o (2048x2048), gate, up
     # (2048x8192), down (8192x2048); then the tied unembed
     per_layer = {(cfg.d_model, cfg.d_model, False): 4,
@@ -1450,6 +1598,12 @@ def phase_flash_check(torch):
     for name in dts:
         for D, window in itertools.product((16, 32), (None, 24)):
             run(name, 3, 8, 2, 80, 80, D, causal=True, window=window)
+        # head dims between the instances, zero-padded to the next one
+        # (20 -> 32, 112 -> 128) and held against the plain version at
+        # the head dim as it is
+        for D, window in itertools.product((20, 112), (None, 24)):
+            run(name, 3, 8, 2, 80, 80, D, causal=True, window=window)
+            cases += 1
         for Hq, Hkv in ((16, 16), (8, 2)):     # a decode-like query
             run(name, 3, Hq, Hkv, 1, 64, 128, causal=True, q_offset=63)
         run(name, 2, 16, 16, 80, 80, 128, view=True, window=24)
@@ -1496,12 +1650,13 @@ def _wave_model(cfg, phases):
     return dataclasses.replace(base, prefill=prefill, decode=decode)
 
 
-def phase_wave_serve(torch, cfg, params, requests=6, max_new=16):
-    """olmo-1b through the wave ContinuousBatcher (4 slots) on the paged
-    phase's requests, under ``auto`` and the forced kernel, after an
-    uncounted warm-up; then one 2048-token prompt under ``auto``.  Every
-    prefill wave must launch the flash kernel once per layer and no
-    decode step may launch it."""
+def phase_wave_serve(torch, cfg, params, requests=6, max_new=16,
+                     long_prompt=2048):
+    """``cfg`` (olmo-1b, gemma3-1b) through the wave ContinuousBatcher (4
+    slots) on the paged phase's requests, under ``auto`` and the forced
+    kernel, after an uncounted warm-up; then one ``long_prompt``-token
+    prompt under ``auto``.  Every prefill wave must launch the flash
+    kernel once per layer and no decode step may launch it."""
     import numpy as np
     from repro_torch import api, obs
     from repro_torch.launch import serve as serve_mod
@@ -1570,9 +1725,9 @@ def phase_wave_serve(torch, cfg, params, requests=6, max_new=16):
         runs[backend], _done = counted(
             backend, serve_mod.random_requests(cfg, requests, max_new,
                                                seed=0))
-    prompt = np.random.RandomState(2).randint(0, cfg.vocab, 2048)
+    prompt = np.random.RandomState(2).randint(0, cfg.vocab, long_prompt)
     runs["long"], done = counted("auto", [Request(0, prompt, max_new=4)],
-                                 max_len=2048 + 4)
+                                 max_len=long_prompt + 4)
     if len(done[0]) != 4:
         raise AssertionError(f"long prompt: {len(done[0])} tokens, want 4")
     return runs
@@ -1636,60 +1791,15 @@ def phase_wave_step(torch, cfg, params):
 def phase_flash_kernels(torch, cfg, serve_shape, launches):
     """Flash kernel / plain / library times and the bound at the wave's
     first prefill shape (B x S) and at B 1 x S 2048, olmo's 16 heads x
-    128, bf16, causal.  The library call is
-    ``scaled_dot_product_attention(..., is_causal=True)``, timed here
-    only; its output is first compared with the plain version (logged).
-    The bound counts the causal pairs these inputs need: 4 D flops a
-    pair, each of q, k, v read once and o written once."""
-    from repro_torch.core import cost
-    from repro_torch.kernels import flash_attention as fa
-    F = torch.nn.functional
-    g = torch.Generator(device="cuda").manual_seed(9)
-    rows = []
+    128, bf16, causal (:func:`_flash_row`)."""
     # the wave's prefill, S 2048 at olmo's 16 x 128, and S 2048 at head
     # dim 256 with the same width (8 heads)
-    for B, S, H, D in ((*serve_shape, cfg.n_heads, cfg.head_dim_),
-                       (1, 2048, cfg.n_heads, cfg.head_dim_),
-                       (1, 2048, cfg.d_model // 256, 256)):
-        q, k, v = (torch.randn((B, H, S, D), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        want = fa.flash_attention_plain(q, k, v)
-        ab = _flash_err(torch, fa.flash_attention(q, k, v), want,
-                        f"timing shape B{B} S{S}")
-        _, lib_rel = _rel_err(F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), want)
-        reps = 50 if S < 1024 else 20
-        t_k = _time_ms(torch, lambda i: fa.flash_attention(q, k, v), reps)
-        t_p = _time_ms(torch, lambda i: fa.flash_attention_plain(q, k, v),
-                       reps)
-        t_l = _time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), reps)
-        # device times (host launch time left out): the kernel's, and all
-        # kernels of one SDPA call
-        d_k, _ = _device_ms(torch, lambda i: fa.flash_attention(q, k, v),
-                            reps, "flash_attention")
-        d_l, _ = _device_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), reps)
-        flops = 4 * D * (S * (S + 1) // 2) * B * H
-        nbytes = 2 * 4 * B * H * S * D
-        t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
-        row = {"B": B, "H": H, "S": S, "D": D, "ms": t_k, "plain_ms": t_p,
-               "library_ms": t_l, "device_ms": d_k,
-               "library_device_ms": d_l,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "flops": flops, "bytes": nbytes, "max_abs_err": ab,
-               "library_rel_err": lib_rel}
-        rows.append(row)
-        log(f"kernel time flash_attention bf16 B={B} H={H} S={S} D={D} "
-            f"causal: kernel {t_k:.4f} ms (device {d_k} ms), plain "
-            f"{t_p:.4f} ms, library (SDPA) {t_l:.4f} ms (device {d_l} ms; "
-            f"rel err vs plain {lib_rel:.3g}), bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops / 1e9:.3f} "
-            f"GFLOP, {nbytes / 1e6:.2f} MB); kernel vs plain max abs err "
-            f"{ab:.4g}; {flops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s")
+    rows = [_flash_row(torch, B, H, H, S, D, None, f"{cfg.name} B{B} S{S}")
+            for B, S, H, D in ((*serve_shape, cfg.n_heads, cfg.head_dim_),
+                               (1, 2048, cfg.n_heads, cfg.head_dim_),
+                               (1, 2048, cfg.d_model // 256, 256))]
     main, long, wide = rows
-    H, D = main["H"], main["D"]
+    H, D = main["Hq"], main["D"]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -1710,7 +1820,7 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
                                          "library_ms", "library_device_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err")},
-        "at_2048_d256": {k: wide[k] for k in ("H", "ms", "device_ms",
+        "at_2048_d256": {k: wide[k] for k in ("Hq", "ms", "device_ms",
                                               "plain_ms", "library_ms",
                                               "library_device_ms",
                                               "bound_ms", "bound_by",
@@ -2263,6 +2373,19 @@ def phase_tune(torch, mcfg):
     if failed:
         raise AssertionError(f"tune: {len(failed)} candidates failed: "
                              f"{failed[:5]}")
+    # the load path each class was timed on: the cp.async ring wherever
+    # op(A) is read along K (NN, NT; every shape on the 16-byte grain),
+    # the scalar path where it is not (TN, TT), the one complex path
+    paths = {}
+    for key, e in prof.entries.items():
+        sc = classes.SizeClass.from_key(key.split(":")[-1])
+        want = "complex" if sc.letter in ("C", "Z") else \
+            "ring" if sc.trans[0] == "N" else "scalar"
+        if e.path != want:
+            raise AssertionError(f"tune {key}: timed on {e.path}, want "
+                                 f"{want}")
+        paths[e.path] = paths.get(e.path, 0) + 1
+    log(f"tune: classes by the load path timed {json.dumps(paths)}")
     cross = _crossovers(prof, letters, transes)
     cross_first = _crossovers(first, letters, transes)
     for key, v in cross.items():
@@ -2331,6 +2454,7 @@ def phase_tune(torch, mcfg):
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     return {"seconds_sweep": t_sweep, "classes": len(prof),
             "prefer_kernel": n_kernel, "crossover": cross,
+            "timed_paths": paths,
             "crossover_first_sweep": cross_first,
             "winners_agree": [agree, len(first)],
             "grouped": {f"{K}x{N}": e.to_json()
@@ -2605,16 +2729,70 @@ def _smoke_swap_parity(torch):
             "generations": len(e.steps_by_gen)}
 
 
+#: an installed verdict fails when its path takes at least this many
+#: times the other path's time on the idle card
+VERDICT_SLACK = 2.0
+
+
+def _idle_verdicts(torch, online):
+    """Each class the online tuner installed, timed again once serving
+    has ended, on the idle card, at the shape and with the kernel the
+    tuner timed (``search.timed_shape``, the entry's signature and K
+    slices) and the library (3 warm-up calls, median of 10): the phase
+    fails where the installed path takes :data:`VERDICT_SLACK` times the
+    other path's time or more.  Returns the timings per class."""
+    from repro_torch import api
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.tune import search, timer
+    from repro_torch.tune.classes import SizeClass
+    out, bad = {}, []
+    for key, e in sorted(online.items()):
+        if e.sig is None or e.library is None or ":" in key:
+            continue
+        sc = SizeClass.from_key(key)
+        M, N, K = search.timed_shape(sc)
+        a, b = search._operands(sc, M, N, K, "cuda")
+        slices = plan_mod.build_plan(M, N, K, sc.letter, sc.trans,
+                                     override=e.sig).regions[0].slices
+        kern = timer.measure(lambda: iaat_gemm.gemm_region(
+            e.sig, a, b, slices=slices), device="cuda", warmup=3, reps=10)
+        lib = timer.measure(lambda: api._lib_gemm(a, b, None, 1.0, 0.0,
+                                                  sc.trans),
+                            device="cuda", warmup=3, reps=10)
+        mine, other = (kern, lib) if e.prefer_kernel else (lib, kern)
+        out[key] = {"installed": "kernel" if e.prefer_kernel else "library",
+                    "path": e.path, "shape": [M, N, K],
+                    "tuner_kernel_us": e.kernel.median_us if e.kernel
+                    else None, "tuner_library_us": e.library.median_us,
+                    "idle_kernel_us": kern.median_us,
+                    "idle_library_us": lib.median_us}
+        log(f"online verdict {key} at {M}x{N}x{K} ({e.path}): installed "
+            f"{out[key]['installed']} (tuner: kernel "
+            f"{out[key]['tuner_kernel_us']} us, library "
+            f"{e.library.median_us:.2f} us); idle card: kernel "
+            f"{kern.median_us:.2f} us, library {lib.median_us:.2f} us")
+        if mine.median_us >= VERDICT_SLACK * other.median_us:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"online serve: installed verdicts {bad} take "
+                             f"{VERDICT_SLACK}x the other path or more on "
+                             f"the idle card: {json.dumps(out)}")
+    return out
+
+
 def phase_online_serve(torch, params, card):
     """olmo-1b at full width under ``tuned`` with the online tuner on,
     from an empty profile, through ``launch.serve.serve(online_tune=True,
-    trace=...)``: at least one background cycle and one swap, merged
+    trace=...)``: at least one cycle (run by the engine between two
+    steps) and one swap, merged
     entries of origin "online" whose kernel times are finite, every
     request complete, every step under one profile generation (the
     engine raises otherwise).  Then the same requests with no tuner,
     from an empty profile again: both tok/s and the requests whose tokens
-    differ (bf16: a count, not a gate).  Then the f32 smoke parity under
-    manual swaps."""
+    differ (bf16: a count, not a gate), and each installed verdict timed
+    again on the idle card (:func:`_idle_verdicts`).  Then the f32 smoke
+    parity under manual swaps."""
     from repro_torch import obs
     from repro_torch.kernels import iaat_gemm
     from repro_torch.launch import serve as serve_mod
@@ -2652,6 +2830,7 @@ def phase_online_serve(torch, params, card):
         off = serve_mod.serve("olmo-1b", **kw)
     differ = sum(on["done"][i] != off["done"][i]
                  for i in range(ONLINE_REQUESTS))
+    idle = _idle_verdicts(torch, online)
     errors = obs.counter("tune.online.errors").value
     log(f"online serve on {card}: olmo-1b, {ONLINE_REQUESTS} requests x "
         f"max_new {ONLINE_MAX_NEW} under tuned: tuner on {on['tok_s']:.2f} "
@@ -2663,6 +2842,7 @@ def phase_online_serve(torch, params, card):
                           round(e.library.median_us, 2) if e.library else
                           None, e.prefer_kernel]
                       for k, e in online.items()})
+        + f"; timing {tuner.timing()} (warm-up, repeats) a candidate"
         + f"; tuner-stream split tickets {tuner_tickets}; steps per profile "
         f"generation {json.dumps(on['steps_by_gen'])}; {differ}/"
         f"{ONLINE_REQUESTS} requests' tokens differ on/off (bf16)")
@@ -2677,6 +2857,7 @@ def phase_online_serve(torch, params, card):
             "tokens": on["tokens"], "cycles": tuner.cycles,
             "swaps": tuner.swaps, "errors": errors,
             "online_entries": {k: e.to_json() for k, e in online.items()},
+            "idle_verdicts": idle,
             "tuner_stream_tickets": tuner_tickets,
             "steps_by_gen": on["steps_by_gen"],
             "launches_on": launches_on, "tokens_differ": differ,
@@ -2767,7 +2948,408 @@ def phase_trace(torch, online, card):
     return summ
 
 
+# --------------------------------------------------------------------------
+# Every remaining decoder-only family: gemma3-1b, glm4-9b, smollm-360m,
+# mixtral-8x22b (4 of 56 layers), zamba2-7b, internvl2-2b.
+# --------------------------------------------------------------------------
+
+GEMMA_ARCH, MIXTRAL_ARCH = "gemma3-1b", "mixtral-8x22b"
+ZAMBA_ARCH, VLM_ARCH = "zamba2-7b", "internvl2-2b"
+DENSE_ARCHS = ("glm4-9b", "smollm-360m")
+#: mixtral-8x22b on one card: full width, 4 of its 56 layers (about 20 GB
+#: of bf16 weights; all 56 are 282 GB, past the card's 80 GB)
+MIXTRAL_LAYERS = 4
+#: gemma3's long wave prompt, past its local layers' window of 512
+GEMMA_LONG = 1100
+#: internvl2's text prompt behind its 1024 frontend tokens
+VLM_TEXT = 64
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _prefill_vs_plain(torch, cfg, params, be, toks, steps, prefix=None):
+    """One wave prefill of ``toks`` (after the ``prefix`` embeddings) and
+    ``steps`` decode steps under ``be`` and through the plain arithmetic
+    (``library``: the chunked oracle), both fed the tokens ``be`` picks;
+    every step's logits within STEP_TOL of the largest, and the prefill's
+    flash launches one a layer, on the tensor cores.  Returns (the
+    prefill's launch counts under ``be``, its seconds, the rel errs)."""
+    from repro_torch import api
+    from repro_torch.models import lm
+    plain = api.Policy(backend="library")
+    S = toks.shape[1] + (0 if prefix is None else prefix.shape[1])
+    errs = []
+    with torch.no_grad():
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lk, ck = lm.prefill(params, cfg, be, toks, cache_len=S + steps,
+                            prefix_embeds=prefix)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = _counts()
+        lp, cp = lm.prefill(params, cfg, plain, toks, cache_len=S + steps,
+                            prefix_embeds=prefix)
+        errs.append(_rel_err(lk, lp)[1])
+        for _ in range(steps):
+            nxt = lk.argmax(-1, keepdim=True)
+            lk, ck = lm.decode(params, cfg, be, nxt, ck)
+            lp, cp = lm.decode(params, cfg, plain, nxt, cp)
+            errs.append(_rel_err(lk, lp)[1])
+    torch.cuda.synchronize()
+    if tuple(lk.shape) != (toks.shape[0], cfg.vocab_padded) or \
+            not torch.isfinite(lk).all() or ck.pos != S + steps or \
+            not all(rel <= STEP_TOL for rel in errs) or \
+            n["flash_attention"] != cfg.n_layers or \
+            n["flash_tc"] != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: prefill of {S} + {steps} decode "
+                             f"steps: launches {n}, rel errs {errs}, logits "
+                             f"{tuple(lk.shape)}, position {ck.pos}")
+    return n, seconds, errs
+
+
+def phase_window_step(torch, cfg, params, S=GEMMA_LONG, steps=3):
+    """One S-token wave prefill past the window and ``steps`` decode steps
+    through the kernels (``kernel``) against the plain arithmetic
+    (:func:`_prefill_vs_plain`)."""
+    from repro_torch import api
+    g = torch.Generator(device="cuda").manual_seed(21)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=g, device="cuda")
+    n, _s, errs = _prefill_vs_plain(torch, cfg, params,
+                                    api.Policy(backend="kernel"), toks,
+                                    steps)
+    log(f"window step {cfg.name}: prefill of {S} tokens (window "
+        f"{cfg.attn.window} on the local layers) + {steps} decode steps, "
+        f"kernel vs plain: rel err per step "
+        f"{[float(f'{r:.3g}') for r in errs]} (tol {STEP_TOL}); prefill "
+        f"flash launches {n['flash_attention']} ({n['flash_tc']} "
+        f"tensor-core), IAAT {n['iaat_gemm']}")
+    return {"S": S, "rel_errs": errs, "prefill_launch_counts": n}
+
+
+def phase_gemma3(torch, cfg):
+    """gemma3-1b at full width and depth (26 layers; 16 padded heads of
+    256, 5:1 local:global with window 512, a tied vocabulary of 262144):
+    PagedEngine and the wave ContinuousBatcher under ``auto`` and the
+    forced kernel, the wave's long prompt past the window, a paged decode
+    step and the long prompt against the plain arithmetic; the flash
+    launches at D 256 and the vocabulary head's IAAT launches printed."""
+    runs, params = phase_serve(torch, GEMMA_ARCH, cfg, 6, 16, ["iaat_gemm"])
+    out = {"serve": runs, "step": phase_step(torch, cfg, params)}
+    out["wave"] = phase_wave_serve(torch, cfg, params,
+                                   long_prompt=GEMMA_LONG)
+    out["window_step"] = phase_window_step(torch, cfg, params)
+    for k, r in list(runs.items()) + list(out["wave"].items()):
+        n = r["launch_counts"]
+        if not n["iaat_vocab_head"]:
+            raise AssertionError(f"gemma3 {k}: the vocab head never took "
+                                 f"the IAAT kernel: {n}")
+    log(f"gemma3 on the card: IAAT launches on the vocab head (N "
+        f"{cfg.vocab_padded}) " + json.dumps(
+            {k: r["launch_counts"]["iaat_vocab_head"] for k, r in
+             list(runs.items()) + [(f"wave {k}", r) for k, r in
+                                   out["wave"].items()]})
+        + "; flash launches at D 256 (tensor-core) " + json.dumps(
+            {f"wave {k}": r["launch_counts"]["flash_tc"]
+             for k, r in out["wave"].items()}))
+    del params
+    _free(torch)
+    return out
+
+
+def phase_paged(torch, arch, cfg, requests=4, max_new=8,
+                kernels=("iaat_gemm",)):
+    """A config at full width (and the depth ``cfg`` has) on PagedEngine
+    under ``auto`` and the forced kernel (:func:`phase_serve`: every
+    kernel of ``kernels`` launched, every IAAT launch on the ring, every
+    expert GEMM a batched launch on the mma ring), and one decode step
+    against the plain arithmetic (:func:`phase_step`): glm4-9b,
+    smollm-360m, and mixtral-8x22b at :data:`MIXTRAL_LAYERS` layers."""
+    runs, params = phase_serve(torch, arch, cfg, requests, max_new,
+                               list(kernels))
+    out = {"serve": runs, "step": phase_step(torch, cfg, params)}
+    del params
+    _free(torch)
+    return out
+
+
+def _hybrid_layerwise(torch, cfg, params, toks, auto, plain):
+    """The bf16 forward block by block, each on the plain path's input:
+    the shared block's attention (flash against the chunked oracle) and
+    every mamba mixer (the SSD kernel against ``ref_ssd``) under ``auto``
+    and through the plain arithmetic, each output within STEP_TOL of its
+    largest value; the plain path's output feeds the next block.  This is
+    how zamba2's bf16 forward is held: over 81 layers a one-step bf16
+    rounding flip of one block's output (flash and the chunked oracle
+    round once each; the scan's f32 output rounds to bf16 at the gate)
+    grew past STEP_TOL of the largest logit (0.087 in this phase's first
+    run, NVIDIA H100 80GB HBM3, 700 W), while the forward with the weights
+    widened to f32 is held at the logits.  Returns the worst (max abs
+    err, rel err, block)."""
+    from repro_torch.models import common, layers, lm, ssm
+    worst = (0.0, 0.0, None)
+
+    def held(what, f):
+        nonlocal worst
+        want = f(plain)
+        ab, rel = _rel_err(f(auto), want)
+        if rel > worst[1]:
+            worst = (ab, rel, what)
+        return want
+
+    with torch.no_grad():
+        x = lm._embed_tokens(params, cfg, toks)
+        for i, blk in enumerate(params.blocks):
+            sh = params.shared
+            if lm._shared_app(cfg, i) is not None:
+                h = common.rmsnorm(x, sh.ln1, cfg.norm_eps)
+                x = x + held(f"shared attention before layer {i}",
+                             lambda be: layers.attention(
+                                 sh.attn, h, be, cfg,
+                                 window=lm._window_for_layer(cfg, i))[0])
+                h = common.rmsnorm(x, sh.ln2, cfg.norm_eps)
+                x = x + layers.mlp(sh.mlp, h, plain)
+            h = common.rmsnorm(x, blk.ln1, cfg.norm_eps)
+            x = x + held(f"mamba {i}",
+                         lambda be: ssm.mamba(blk.mixer, h, be, cfg))
+    return worst
+
+
+def phase_hybrid_forward(torch, cfg, params, Bt=2, S=2048):
+    """One zamba2-7b forward_train over Bt x S tokens under ``auto``
+    (timed: the SSD kernel in every mamba layer, flash at D 112 padded to
+    the tensor-core instance at 128 in each of the shared block's
+    applications, the M = 4096 GEMMs on the library) and through the
+    plain arithmetic (``library``): in bf16 each block within STEP_TOL
+    (:func:`_hybrid_layerwise`; the logits' error is reported); then the same
+    with the weights widened to f32 (in place: the phase is their last
+    user), the logits within FWD_F32_TOL."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.kernels import ssd
+    from repro_torch.models import lm
+    auto, plain = api.Policy(backend="auto"), api.Policy(backend="library")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    toks = torch.randint(0, cfg.vocab, (Bt, S), generator=g, device="cuda")
+    napps = lm._n_shared_apps(cfg)
+    out = {"Bt": Bt, "S": S, "applications": napps}
+
+    def both(c):
+        with torch.no_grad():
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            la, _ = lm.forward_train(params, c, auto, toks)
+            torch.cuda.synchronize()
+            t_auto = time.perf_counter() - t0
+            n = _counts()
+            t0 = time.perf_counter()
+            lp, _ = lm.forward_train(params, c, plain, toks)
+            torch.cuda.synchronize()
+            t_lib = time.perf_counter() - t0
+        if tuple(la.shape) != (Bt, S, c.vocab_padded) or not (
+                torch.isfinite(la).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"hybrid forward logits {tuple(la.shape)}"
+                                 ", or non-finite")
+        ab, rel = _rel_err(la, lp)
+        return n, t_auto, t_lib, ab, rel
+
+    per = ssd.launches_per_scan(S, cfg.ssm.chunk)
+
+    def held_to_kernels(n, instance):
+        # every mamba layer's scan and every shared application's flash
+        # on the kernel, flash on the instance its dtype takes
+        if n["ssd_scans"] != cfg.n_layers or \
+                n["ssd_scan"] != cfg.n_layers * per or \
+                n["flash_attention"] != napps or n[instance] != napps:
+            raise AssertionError(
+                f"hybrid forward under auto: launches {n}, want "
+                f"{cfg.n_layers} scans of {per} and {napps} flash "
+                f"launches on {instance}")
+
+    n, out["auto_s"], out["library_s"], ab, rel = both(cfg)
+    held_to_kernels(n, "flash_tc")
+    lab, lrel, where = _hybrid_layerwise(torch, cfg, params, toks, auto,
+                                         plain)
+    out.update(launch_counts=n, max_abs_err=ab, rel_err=rel,
+               layer_max_abs_err=lab, layer_rel_err=lrel, worst_block=where)
+    log(f"hybrid forward {cfg.name} {Bt}x{S}: auto {out['auto_s']:.3f} s "
+        f"(SSD {n['ssd_scans']} scans of {n['ssd_scan']} launches, flash "
+        f"{n['flash_attention']} launches at D {cfg.head_dim_} padded to "
+        f"128, {n['flash_tc']} on the tensor cores, IAAT {n['iaat_gemm']}),"
+        f" library {out['library_s']:.3f} s; logits max abs err {ab:.4g}, "
+        f"rel {rel:.3g}; layer by layer worst rel {lrel:.3g} ({where}, max "
+        f"abs {lab:.4g}; tol {STEP_TOL})")
+    if not lrel <= STEP_TOL:
+        raise AssertionError(f"hybrid forward, {where}: rel err {lrel} > "
+                             f"{STEP_TOL}")
+    for w in [params.embed, params.unembed] + [
+            t for blk in params.blocks
+            for t in (blk.mixer.in_proj, blk.mixer.out_proj)] + [
+            getattr(m, k) for m, ks in ((params.shared.attn, "wq wk wv wo"),
+                                        (params.shared.mlp, "wg wu wd"))
+            for k in ks.split()]:
+        if w is not None:
+            w.data = w.data.float()
+    n32, _, _, ab32, rel32 = both(dataclasses.replace(cfg, dtype="float32"))
+    held_to_kernels(n32, "flash_cuda_core")
+    out.update(f32_max_abs_err=ab32, f32_rel_err=rel32,
+               f32_launch_counts=n32)
+    log(f"hybrid forward {cfg.name} {Bt}x{S}, weights widened to f32: "
+        f"logits max abs err {ab32:.4g}, rel {rel32:.3g} (tol "
+        f"{FWD_F32_TOL}); flash launches {n32['flash_attention']} "
+        f"(CUDA-core {n32['flash_cuda_core']})")
+    if not rel32 <= FWD_F32_TOL:
+        raise AssertionError(f"f32 hybrid forward rel err {rel32} > "
+                             f"{FWD_F32_TOL}")
+    return out
+
+
+def phase_zamba2(torch, cfg):
+    """zamba2-7b at full width and depth (81 mamba layers at d 3584,
+    d_state 64, one shared attention block applied 14 times, head dim
+    112) on PagedEngine under ``auto`` and the forced kernel (IAAT
+    launches > 0; no SSD or flash launch: serving runs the token
+    recurrence and paged attention in plain ops), then its forward_train
+    (:func:`phase_hybrid_forward`)."""
+    runs, params = phase_serve(torch, ZAMBA_ARCH, cfg, 6, 16, ["iaat_gemm"])
+    for backend, r in runs.items():
+        n = r["launch_counts"]
+        if n["ssd_scan"] or n["flash_attention"]:
+            raise AssertionError(f"{ZAMBA_ARCH} {backend}: serving "
+                                 f"launched the SSD or flash kernel: {n}")
+    out = {"serve": runs,
+           "forward": phase_hybrid_forward(torch, cfg, params)}
+    del params
+    _free(torch)
+    return out
+
+
+def phase_vlm(torch, cfg, steps=4):
+    """internvl2-2b at full width and depth: a short paged serve of text
+    (the reference's engine serves VLM text) under ``auto`` and the
+    forced kernel; then one prefill of 1024 ``fake_frontend`` embeddings
+    plus a :data:`VLM_TEXT`-token prompt and ``steps`` decode steps under
+    ``auto`` against the plain arithmetic (:func:`_prefill_vs_plain`)."""
+    from repro_torch import api
+    from repro_torch.models import frontends
+    runs, params = phase_serve(torch, VLM_ARCH, cfg, 4, 8, ["iaat_gemm"])
+    g = torch.Generator(device="cuda").manual_seed(23)
+    pre = frontends.fake_frontend(g, cfg, 1, 0, cfg.compute_dtype, "cuda")
+    toks = torch.randint(0, cfg.vocab, (1, VLM_TEXT), generator=g,
+                         device="cuda")
+    n, prefill_s, errs = _prefill_vs_plain(
+        torch, cfg, params, api.Policy(backend="auto"), toks, steps, pre)
+    log(f"vlm prefill {cfg.name}: {pre.shape[1]} frontend + {VLM_TEXT} text "
+        f"tokens in {prefill_s:.3f} s under auto (flash "
+        f"{n['flash_attention']} launches, {n['flash_tc']} tensor-core; "
+        f"IAAT {n['iaat_gemm']}); kernel vs plain rel err per step "
+        f"{[float(f'{r:.3g}') for r in errs]} (tol {STEP_TOL})")
+    del params
+    _free(torch)
+    return {"serve": runs, "prefill_s": prefill_s, "prefix": pre.shape[1],
+            "text": VLM_TEXT, "prefill_launch_counts": n, "rel_errs": errs}
+
+
+def _batched_row(torch, mcfg, K, N):
+    """batched_gemm / plain / torch.bmm times (loop and device) and the
+    bound at one of mixtral's expert GEMMs at decode (8 experts x C rows,
+    bf16: one call reads 8 K N weights, >= 1.6 GB, from HBM)."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import grouped_gemm as gg
+    g = torch.Generator(device="cuda").manual_seed(41)
+    bf = torch.bfloat16
+    E, C = mcfg.moe.num_experts, _decode_capacity(mcfg)
+    x = torch.randn((E, C, K), generator=g, device="cuda").to(bf)
+    w = (torch.randn((E, K, N), generator=g, device="cuda") /
+         math.sqrt(K)).to(bf)
+    blocks = gg.pick_blocks(C, K, N, bf)
+    _, rel = _rel_err(gg.batched_gemm(x, w, blocks=blocks),
+                      gg.batched_gemm_plain(x, w))
+    if not rel <= TOL["H"]:
+        raise AssertionError(f"batched_gemm mixtral K={K} N={N}: rel err "
+                             f"{rel}")
+    t = {"ms": _time_ms(torch, lambda i: gg.batched_gemm(
+        x, w, blocks=blocks), 20),
+         "plain_ms": _time_ms(torch, lambda i: gg.batched_gemm_plain(x, w),
+                              5),
+         "library_ms": _time_ms(torch, lambda i: torch.bmm(x, w), 20),
+         "device_ms": _device_ms(torch, lambda i: gg.batched_gemm(
+             x, w, blocks=blocks), 10, "grouped_gemm_kernel")[0],
+         "library_device_ms": _device_ms(torch, lambda i: torch.bmm(x, w),
+                                         10)[0]}
+    flops, nbytes = 2 * E * C * K * N, 2 * (E * C * K + E * K * N + E * C * N)
+    t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
+    path, slices = gg.launch_plan(x, w, blocks)
+    row = {"kernel": "batched_gemm", "at": f"{mcfg.name} expert GEMM",
+           "G": E, "C": C, "K": K, "N": N, **t,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "path": path, "slices": slices, "rel_err": rel}
+    log(f"kernel time batched_gemm {mcfg.name} H {E} x C={C} K={K} N={N} "
+        f"({path}, {slices} K slices): kernel {t['ms']:.4f} ms (device "
+        f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, library "
+        f"torch.bmm {t['library_ms']:.4f} ms (device "
+        f"{t['library_device_ms']} ms), bound {row['bound_ms']:.4f} ms")
+    return row
+
+
+def phase_slice_kernels(torch, launches):
+    """The slice's new kernel shapes, each timed against its plain
+    version, its library call and its bound: the IAAT kernel on gemma3's
+    tied 262144-entry vocabulary head and glm4's d 4096 / d_ff 13696
+    projections (M = 4, decode), flash at gemma3's D 256 with window 512
+    (its 1100-token prompt, 16 padded heads over 4 KV heads) and at
+    zamba2's D 112 (the forward's 2 x 2048 tokens, padded to 128),
+    mixtral's expert GEMMs on batched_gemm and zamba2's SSD scan at
+    d_state 64.  ``launches[kernel][arch]`` is the kernel's count on that
+    model's main path, from the phases above; each row gets its model's.
+    Returns rows per kernel."""
+    from repro_torch import configs
+    gem = configs.get_config(GEMMA_ARCH)
+    glm = configs.get_config("glm4-9b")
+    mix = _mixtral_cfg()
+    zam = configs.get_config(ZAMBA_ARCH)
+    rows = {"iaat_gemm": [
+        _iaat_row(torch, 4, gem.d_model, gem.vocab_padded, True,
+                    "gemma3-1b vocab head")] + [
+        _iaat_row(torch, 4, K, N, False, f"glm4-9b {what}")
+        for what, K, N in (("q/o", glm.d_model, glm.d_model),
+                           ("gate/up", glm.d_model, glm.d_ff),
+                           ("down", glm.d_ff, glm.d_model))]}
+    rows["flash_attention"] = [
+        _flash_row(torch, 1, gem.n_heads_padded, gem.n_kv_heads_padded,
+                     GEMMA_LONG, gem.head_dim_, gem.attn.window,
+                     "gemma3-1b local layer, long prompt"),
+        _flash_row(torch, 2, zam.n_heads_padded, zam.n_kv_heads_padded,
+                     2048, zam.head_dim_, None,
+                     "zamba2-7b shared block, forward_train")]
+    rows["batched_gemm"] = [
+        _batched_row(torch, mix, K, N)
+        for K, N in _grouped_decode_shapes(mix)]
+    _entry, ssd_rows = phase_ssd_kernels(torch, zam, 0)
+    ssd_rows[0]["at"] = "zamba2-7b forward_train layer"
+    rows["ssd_scan"] = ssd_rows
+    for name, rs in rows.items():
+        for r in rs:
+            r["main_path_launches"] = launches.get(name, {}).get(
+                r["at"].split()[0])
+    return rows
+
+
+def _mixtral_cfg():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config(MIXTRAL_ARCH),
+                               n_layers=MIXTRAL_LAYERS)
+
+
 def main():
+    """Every phase, in order."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2779,6 +3361,7 @@ def main():
         return 3
     sys.path.insert(0, str(src))
     from repro_torch import configs
+    _count_vocab_head()
     cfg = configs.get_config("olmo-1b")
     mcfg = configs.get_config(MOE_ARCH)
     scfg = configs.get_config(SSM_ARCH)
@@ -2844,6 +3427,18 @@ def main():
                                       torch, scfg, params)
         del params
         torch.cuda.empty_cache()
+        report["gemma3"] = timed("gemma3", phase_gemma3, torch,
+                                 configs.get_config(GEMMA_ARCH))
+        report["dense"] = timed("dense", lambda: {
+            a: phase_paged(torch, a, configs.get_config(a))
+            for a in DENSE_ARCHS})
+        report["mixtral"] = timed("mixtral", phase_paged, torch,
+                                  MIXTRAL_ARCH, _mixtral_cfg(), 5, 8,
+                                  ("batched_gemm", "iaat_gemm"))
+        report["zamba2"] = timed("zamba2", phase_zamba2, torch,
+                                 configs.get_config(ZAMBA_ARCH))
+        report["vlm"] = timed("vlm", phase_vlm, torch,
+                              configs.get_config(VLM_ARCH))
         entry, rows = timed("kernels", phase_kernels, torch, cfg,
                             report["serve"]["auto"]["launches"], max_err)
         launches = {"batched_gemm": report["moe_serve"]["auto"]["launches"],
@@ -2859,6 +3454,21 @@ def main():
         ssd_entry, ssd_rows = timed(
             "ssd kernels", phase_ssd_kernels, torch, scfg,
             report["ssm_forward"]["launches"])
+        gem, zam = report["gemma3"], report["zamba2"]["forward"]
+        slice_rows = timed("slice kernels", phase_slice_kernels, torch, {
+            "iaat_gemm": {
+                GEMMA_ARCH: gem["serve"]["auto"]["launch_counts"][
+                    "iaat_vocab_head"],
+                "glm4-9b": report["dense"]["glm4-9b"]["serve"]["auto"][
+                    "launches"]},
+            "flash_attention": {
+                GEMMA_ARCH: gem["wave"]["auto"]["launch_counts"][
+                    "flash_attention"],
+                ZAMBA_ARCH: zam["launch_counts"]["flash_attention"]},
+            "batched_gemm": {
+                MIXTRAL_ARCH: report["mixtral"]["serve"]["auto"][
+                    "launch_counts"]["batched_gemm"]},
+            "ssd_scan": {ZAMBA_ARCH: zam["launch_counts"]["ssd_scan"]}})
         # before the tune: after its sweep, torch.profiler traces drop the
         # first kernels of a trace (two of ten or of fifty, on the H100)
         grid = report["grid_check"]
@@ -2872,7 +3482,12 @@ def main():
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry]
-    report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows
+    for e in report["kernels"]:
+        if e["name"] in slice_rows:
+            # the same kernel at the tenth slice's shapes
+            e["slice_shapes"] = slice_rows[e["name"]]
+    report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows \
+        + [r for rs in slice_rows.values() for r in rs]
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,7 +1,11 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
-Arch ids use the dashed names; module files use underscores.  Only the
-architectures the port serves are registered so far.
+Arch ids use the dashed names; module files use underscores.  Every
+decoder-only architecture of the reference is registered: the dense
+(olmo-1b, gemma3-1b, smollm-360m, glm4-9b), MoE (moonshot-v1-16b-a3b,
+mixtral-8x22b), SSM (mamba2-780m), hybrid (zamba2-7b) and VLM
+(internvl2-2b) families.  The enc-dec seamless-m4t-large-v2 is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -11,9 +15,15 @@ from typing import List
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS: List[str] = [
-    "olmo-1b",
+    "mixtral-8x22b",
     "moonshot-v1-16b-a3b",
     "mamba2-780m",
+    "zamba2-7b",
+    "glm4-9b",
+    "gemma3-1b",
+    "olmo-1b",
+    "smollm-360m",
+    "internvl2-2b",
 ]
 
 

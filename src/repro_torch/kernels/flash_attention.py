@@ -14,9 +14,16 @@ k and v (B, Hkv, Sk, D) -> (B, Hq, Sq, D) in q's dtype, GQA by kv head
   is checked with ``cudaGetLastError`` and counted per kernel
   (:func:`launch_count`).  The kernels' tile sizes are their own, so the
   reference's ``bq``/``bkv`` have no counterpart here.
+* The reference takes any head dim.  A D between the built instances
+  (smollm's 20, zamba2's 112) is zero-padded along D to the next one
+  (:func:`padded_head_dim`: 20 -> 32, 112 -> 128) and the output sliced
+  back: zero columns leave q k^T unchanged and add zero columns to P V.
+  The scale stays the caller's (1/sqrt of the unpadded D by default),
+  never 1/sqrt(D_padded).  A D above 256 raises on the card.
 * On a CPU tensor it runs :func:`flash_attention_plain`, the plain PyTorch
   version: the same online softmax over KV chunks, in f32, with the same
-  masks and the same finite ``NEG_INF``/``1e-37`` handling.
+  masks and the same finite ``NEG_INF``/``1e-37`` handling, on the same
+  padded operands.
 
 The kernel has no backward: a CUDA call that autograd would record raises.
 """
@@ -64,6 +71,24 @@ def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "flash_attention_tc"
     return "flash_attention"
+
+
+def padded_head_dim(D: int) -> int:
+    """The built head dim a call of head dim ``D`` runs at: the smallest
+    instance of :data:`HEAD_DIMS` at least ``D``."""
+    for h in HEAD_DIMS:
+        if h >= D:
+            return h
+    raise NotImplementedError(
+        f"flash_attention: head dim {D} is above the largest built "
+        f"instance, {HEAD_DIMS[-1]} (zero-padding only widens D, and the "
+        "tensor-core kernel's tiles stop at 256); no config of the repo "
+        "has one")
+
+
+def _pad_d(t: torch.Tensor, D: int) -> torch.Tensor:
+    """``t`` (B, H, S, d) zero-padded along its last dim to ``D``."""
+    return torch.nn.functional.pad(t, (0, D - t.shape[3]))
 
 
 def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
@@ -137,7 +162,8 @@ def _launch(q, k, v, causal, window, q_offset, scale):
                                   f"{q.dtype} (f32 and bf16 only)")
     if D not in HEAD_DIMS:
         raise NotImplementedError(f"flash_attention: no CUDA kernel for "
-                                  f"head dim {D} (built: {HEAD_DIMS})")
+                                  f"head dim {D} (built: {HEAD_DIMS}; "
+                                  "flash_attention pads to them)")
     if records_grad(q, k, v):
         raise NotImplementedError("flash_attention: the CUDA kernel has no "
                                   "backward yet")
@@ -180,7 +206,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); returns (B, Hq, Sq, D).
 
     Operands may be any strided views (the CUDA kernel reads them through
-    their strides).  ``window`` must be at least 1 when given."""
+    their strides).  ``window`` must be at least 1 when given.  A head dim
+    between the built instances runs zero-padded to the next one (module
+    docstring), on either device."""
     if q.ndim != 4 or k.ndim != 4 or tuple(k.shape) != tuple(v.shape) or \
             k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -193,10 +221,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} < 1")
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
-    scale = scale if scale is not None else q.shape[3] ** -0.5
-    if q.device.type == "cuda":
-        return _launch(q, k, v, causal, window, q_offset, scale)
-    if q.device.type != "cpu":
+    D = q.shape[3]
+    scale = scale if scale is not None else D ** -0.5
+    card = _on_card(q)
+    if not card and q.device.type != "cpu":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, scale=scale)
+    # on the CPU a D past the instances has none to pad to: the plain
+    # version takes any D
+    Dp = D if not card and D > HEAD_DIMS[-1] else padded_head_dim(D)
+    if Dp != D:
+        q, k, v = _pad_d(q, Dp), _pad_d(k, Dp), _pad_d(v, Dp)
+    if card:
+        out = _launch(q, k, v, causal, window, q_offset, scale)
+    else:
+        out = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, scale=scale)
+    return out[..., :D] if Dp != D else out
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on the card (the kernel's side)."""
+    return t.device.type == "cuda"

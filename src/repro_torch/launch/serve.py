@@ -3,15 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
         --backend auto --requests 6 --max-new 16
 
-``--arch`` takes every ported config: olmo-1b, moonshot-v1-16b-a3b and
-mamba2-780m (the ssm family, whose carries live in the engine's per-slot
-rows).
+``--arch`` takes every registered config: the dense olmo-1b, gemma3-1b,
+smollm-360m and glm4-9b, the MoE moonshot-v1-16b-a3b and mixtral-8x22b,
+the ssm mamba2-780m and the hybrid zamba2-7b (whose carries live in the
+engine's per-slot rows), and the VLM internvl2-2b, served on text as the
+reference serves it.  The enc-dec seamless-m4t-large-v2 is not
+registered: ``registry.build`` refuses the enc-dec and audio families, as
+the reference's launcher refuses them.
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
 versions).  Weights are random, drawn from ``--seed`` by a
-``torch.Generator`` on the device.  ``--online-tune`` runs the background
-re-tuner for the engine's lifetime (on the card it times the kernels and
+``torch.Generator`` on the device.  ``--online-tune`` runs the online
+re-tuner between the engine's steps (on the card it times the kernels and
 the library on its own stream); ``--trace PATH`` writes the flight
 recorder as a Perfetto JSON after the run::
 
@@ -55,15 +59,17 @@ def serve(arch: str, *, smoke: bool = False, requests: int = 8,
           slots: int = 4, max_new: int = 16, block_size: int = 16,
           temperature: float = 0.0, backend: str = "auto", seed: int = 0,
           device: str = "cuda", params=None, online_tune: bool = False,
-          trace=None) -> dict:
+          trace=None, cfg=None) -> dict:
     """Serve ``requests`` random prompts (lengths 4..23, tokens from
     ``seed``) through :class:`PagedEngine`; returns the outputs and the
     run's counts and wall time.  ``params`` reuses the weights an earlier
-    call returned.  ``online_tune`` runs the small-budget online tuner
-    for the engine's lifetime (its ``cycles`` and ``swaps`` are returned,
+    call returned; ``cfg`` serves that config in place of ``arch``'s (a
+    depth cut, for one).  ``online_tune`` runs the small-budget online tuner
+    between the engine's steps (its ``cycles`` and ``swaps`` are returned,
     and the tuner); ``trace`` writes the flight recorder's ring as a
     Perfetto JSON there (its path is returned)."""
-    cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    if cfg is None:
+        cfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
     model = build_model(cfg)
     be = api.install(api.named_policy(backend))
     if params is None:
@@ -115,8 +121,8 @@ def main() -> None:
                     help="write the flight-recorder timeline as a "
                          "Chrome-trace/Perfetto JSON after the run")
     ap.add_argument("--online-tune", action="store_true",
-                    help="run the background traffic-aware re-tuner for "
-                         "the engine's lifetime: hot size classes from "
+                    help="run the traffic-aware re-tuner between the "
+                         "engine's steps: hot size classes from "
                          "ROUTES.windowed() are re-timed on a budget and "
                          "merged into the live profile (kill switch: "
                          "REPRO_ONLINE_TUNE=0; pair with a routing "

@@ -1,8 +1,21 @@
-"""Decoder-only LM, dense, MoE and SSM families: the wave serving path
-(:func:`prefill`, :func:`decode` over an :class:`LMCache`), the paged
-serving path (:func:`paged_prefill`, :func:`paged_decode` over a
-:class:`PagedState`) and, for the SSM family, :func:`forward_train`
-(counterpart of ``repro/models/lm.py``).
+"""Decoder-only LM, every decoder-only family of the reference: the wave
+serving path (:func:`prefill`, :func:`decode` over an :class:`LMCache`),
+the paged serving path (:func:`paged_prefill`, :func:`paged_decode` over
+a :class:`PagedState`) and, for the SSM and hybrid families,
+:func:`forward_train` (counterpart of ``repro/models/lm.py``).
+
+Family wiring, as the reference's:
+  dense / vlm   [attn + mlp] blocks; attention full, swa or local:global.
+  moe           [attn + moe] blocks.
+  ssm           [mamba] blocks.
+  hybrid        [mamba] blocks plus ONE shared [attn + mlp] block
+                (zamba2) applied before layer ``i`` wherever
+                ``i % shared_attn_every == 0``; its weights are shared,
+                its K/V are kept per application.
+A VLM (internvl2) takes its stub frontend's output as ``prefix_embeds``,
+concatenated before the tokens.  Attention heads padded for sharding
+(``head_pad_multiple``) are dead heads with zero weights: they add
+exactly 0, and a dead q head reads a dead KV head.
 
 Parameters live in :class:`DenseLM`, an ``nn.Module`` built either from a
 ``torch.Generator`` (:func:`init_lm`) or from the JAX package's parameter
@@ -24,6 +37,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.api import Policy
@@ -76,26 +90,47 @@ class MambaBlock(nn.Module):
 
 
 class DenseLM(nn.Module):
-    def __init__(self, embed, blocks, final_norm=None, unembed=None):
+    def __init__(self, embed, blocks, final_norm=None, unembed=None,
+                 shared: Optional[Block] = None):
         super().__init__()
         self.embed = _frozen(embed)                # (Vp, d)
         self.blocks = nn.ModuleList(blocks)
         self.final_norm = _frozen(final_norm)
         self.unembed = _frozen(unembed)            # (d, Vp) when untied
+        self.shared = shared                       # hybrid: [attn + mlp]
 
 
 # --------------------------------------------------------------------------
 # Construction.
 # --------------------------------------------------------------------------
 
+#: the families this module serves (the reference's decoder-only ones)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.shared_attn_every:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense, moe and ssm only)")
-    if cfg.head_pad_multiple:
-        raise NotImplementedError(f"{cfg.name}: head padding (a sharding "
-                                  "aid) is not ported")
+            f"(decoder-only families only: {', '.join(FAMILIES)})")
+
+
+def _recurrent(cfg: ModelConfig) -> bool:
+    """Mamba blocks (the ssm and hybrid families)."""
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _n_shared_apps(cfg: ModelConfig) -> int:
+    """How often the hybrid's shared block is applied: ceil(L / every)."""
+    return -(cfg.n_layers // -cfg.shared_attn_every) \
+        if cfg.shared_attn_every else 0
+
+
+def _shared_app(cfg: ModelConfig, i: int) -> Optional[int]:
+    """The shared block's application index before layer ``i``, or None
+    where it is not applied."""
+    e = cfg.shared_attn_every
+    return i // e if e and i % e == 0 else None
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
@@ -114,37 +149,54 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 
     d, H, Hkv, hd, ff = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                          cfg.head_dim_, cfg.d_ff)
+    Hp, Hkvp = cfg.n_heads_padded, cfg.n_kv_heads_padded
     s = 1.0 / math.sqrt(d)
-    # the ssm family has no attention or MLP (H = ff = 0): no such scales
+    # the ssm family has no attention or MLP (H = ff = 0): no such scales;
+    # wo's scale counts the live heads only, as the reference's
     so = 1.0 / math.sqrt(H * hd or 1) / math.sqrt(2.0 * cfg.n_layers)
     sd = 1.0 / math.sqrt(ff or 1) / math.sqrt(2.0 * cfg.n_layers)
     norm = (lambda: torch.ones(d, dtype=pdt, device=device)) \
         if cfg.parametric_norm else (lambda: None)
+
+    def attention():
+        # dead (padding) heads: zero columns of wq, wk, wv past the live
+        # heads and zero rows of wo (``init_attention``)
+        def cols(w, n):
+            return F.pad(w, (0, n - w.shape[1]))
+        return Attention(cols(ninit((d, H * hd), s), Hp * hd),
+                         cols(ninit((d, Hkv * hd), s), Hkvp * hd),
+                         cols(ninit((d, Hkv * hd), s), Hkvp * hd),
+                         F.pad(ninit((H * hd, d), so),
+                               (0, 0, 0, (Hp - H) * hd)))
+
+    def mlp():
+        return MLP(ninit((d, ff), s), ninit((d, ff), s), ninit((ff, d), sd))
+
     blocks = []
     for _ in range(cfg.n_layers):
-        if cfg.family == "ssm":
+        if _recurrent(cfg):
             blocks.append(MambaBlock(SSM.init_mamba(cfg, ninit, generator,
                                                     device), norm()))
-            continue
-        attn = Attention(ninit((d, H * hd), s), ninit((d, Hkv * hd), s),
-                         ninit((d, Hkv * hd), s), ninit((H * hd, d), so))
-        if cfg.family == "moe":
-            blocks.append(Block(attn, None, norm(), norm(),
+        elif cfg.family == "moe":
+            blocks.append(Block(attention(), None, norm(), norm(),
                                 MoE(*L.init_moe(cfg, ninit))))
-            continue
-        mlp = MLP(ninit((d, ff), s), ninit((d, ff), s), ninit((ff, d), sd))
-        blocks.append(Block(attn, mlp, norm(), norm()))
+        else:
+            blocks.append(Block(attention(), mlp(), norm(), norm()))
+    shared = Block(attention(), mlp(), norm(), norm()) \
+        if cfg.shared_attn_every else None
     unembed = None if cfg.tie_embeddings else \
         ninit((d, cfg.vocab_padded), 1.0 / math.sqrt(d))
     return DenseLM(ninit((cfg.vocab_padded, d), d ** -0.5), blocks, norm(),
-                   unembed)
+                   unembed, shared)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda", dtype: Optional[torch.dtype] = None
                       ) -> DenseLM:
     """The JAX package's parameters (nested dict of numpy arrays, layers
-    stacked on axis 0, ``None`` for absent norms) as the port's module.
+    stacked on axis 0, ``None`` for absent norms; attention weights in
+    their padded shapes, the hybrid's ``shared`` block unstacked) as the
+    port's module.
     Matmul weights, expert weights and the embedding are cast to
     ``dtype`` (default: the compute dtype) once, here, as ``_expert_ffn``
     casts the experts at use in the reference; norm weights keep their
@@ -163,40 +215,55 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     def norm(a):
         return None if a is None else t(a, cfg.param_torch_dtype)
 
+    def block(b, at=lambda a: a):
+        """One [attn + mlp/moe] block of tree ``b``, its arrays cut by
+        ``at`` (layer ``i`` of the stack; the shared block is unstacked)."""
+        def get(*keys):
+            a = b
+            for k in keys:
+                a = a.get(k) if a is not None else None
+            return None if a is None else at(a)
+        attn = Attention(*(t(get("attn", k)) for k in ("wq", "wk", "wv",
+                                                        "wo")))
+        mlp = moe = None
+        if "moe" in b:
+            moe = MoE(t(get("moe", "router"), torch.float32),
+                      *(t(get("moe", k)) for k in ("w_gate", "w_up",
+                                                   "w_down")))
+        else:
+            mlp = MLP(*(t(get("mlp", k)) for k in ("wg", "wu", "wd")))
+        return Block(attn, mlp, norm(get("ln1")), norm(get("ln2")), moe)
+
     b = tree["blocks"]
     blocks = []
     for i in range(cfg.n_layers):
-        ln1 = b["ln1"][i] if b.get("ln1") is not None else None
-        if cfg.family == "ssm":
+        if _recurrent(cfg):
+            ln1 = b["ln1"][i] if b.get("ln1") is not None else None
             mx = b["mixer"]
             mixer = SSM.Mamba(**{
                 k: t(mx[k][i], dtype if k in SSM.MATMUL else torch.float32
                      if k in SSM.F32 else cfg.param_torch_dtype)
                 for k in SSM.PARAMS})
             blocks.append(MambaBlock(mixer, norm(ln1)))
-            continue
-        at = b["attn"]
-        attn = Attention(*(t(at[k][i]) for k in ("wq", "wk", "wv", "wo")))
-        mlp = moe = None
-        if cfg.family == "moe":
-            mo = b["moe"]
-            moe = MoE(t(mo["router"][i], torch.float32),
-                      *(t(mo[k][i]) for k in ("w_gate", "w_up", "w_down")))
         else:
-            ml = b["mlp"]
-            mlp = MLP(*(t(ml[k][i]) for k in ("wg", "wu", "wd")))
-        ln2 = b["ln2"][i] if b.get("ln2") is not None else None
-        blocks.append(Block(attn, mlp, norm(ln1), norm(ln2), moe))
+            blocks.append(block(b, lambda a, i=i: a[i]))
+    shared = block(tree["shared"]) if cfg.shared_attn_every else None
     return DenseLM(t(tree["embed"]), blocks, norm(tree.get("final_norm")),
-                   t(tree.get("unembed")))
+                   t(tree.get("unembed")), shared)
 
 
 # --------------------------------------------------------------------------
 # Block application (shared by every serving mode).
 # --------------------------------------------------------------------------
 
-def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens):
-    return params.embed[tokens].to(cfg.compute_dtype)
+def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens,
+                  prefix_embeds=None):
+    """Token embeddings (B, S, d) in the compute dtype, after the
+    frontend's ``prefix_embeds`` (B, P, d) when given."""
+    x = params.embed[tokens].to(cfg.compute_dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
+    return x
 
 
 def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
@@ -251,21 +318,25 @@ def _apply_mamba_block(blk: MambaBlock, x, be: Policy, cfg: ModelConfig, *,
 
 
 # --------------------------------------------------------------------------
-# Forward over whole sequences (scoring; the ssm family).
+# Forward over whole sequences (scoring; the ssm and hybrid families).
 # --------------------------------------------------------------------------
 
-def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens):
-    """tokens (B, S) -> (logits (B, S, Vp), aux loss (a f32 scalar, 0 for
-    the ssm family)).  Under every policy but the forced library each
-    mamba layer runs the SSD kernel once over the whole sequence.  The
-    dense and MoE families' forward belongs to the training slice, which
-    is not ported yet."""
-    if cfg.family != "ssm":
+def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
+                  prefix_embeds=None):
+    """tokens (B, S_text) -> (logits (B, S_total, Vp), aux loss (a f32
+    scalar, 0 for these families)).  Under every policy but the forced
+    library each mamba layer runs the SSD kernel once over the whole
+    sequence, and the hybrid's shared block the flash kernel.  The dense,
+    MoE and VLM families' forward belongs to the training slice, which is
+    not ported yet."""
+    if not _recurrent(cfg):
         raise NotImplementedError(
             f"{cfg.name}: forward_train of the {cfg.family} family comes "
             "with the training slice, not ported yet")
-    x = _embed_tokens(params, cfg, tokens)
-    for blk in params.blocks:
+    x = _embed_tokens(params, cfg, tokens, prefix_embeds)
+    for i, blk in enumerate(params.blocks):
+        if _shared_app(cfg, i) is not None:
+            x, _ = _apply_attn_block(params.shared, x, be, cfg, i)
         x, _ = _apply_mamba_block(blk, x, be, cfg)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be), torch.zeros(
@@ -282,12 +353,16 @@ class LMCache:
     """Cache of the wave path.  ``pos`` is the next position, a host
     integer (the reference keeps a device scalar: a host int costs no
     device read per step).  Attention families keep K/V buffers, the ssm
-    family its recurrent carries; :func:`decode` updates them in place."""
+    and hybrid families their recurrent carries, the hybrid also one K/V
+    buffer per application of its shared block; :func:`decode` updates
+    them in place."""
     pos: int
     attn_k: Optional[torch.Tensor] = None     # (L, B, Hkv, W, hd)
     attn_v: Optional[torch.Tensor] = None
     conv: Optional[torch.Tensor] = None       # (L, B, K-1, ch)
     ssm: Optional[torch.Tensor] = None        # (L, B, nh, P, N) f32
+    shared_k: Optional[torch.Tensor] = None   # (napps, B, Hkv, W, hd)
+    shared_v: Optional[torch.Tensor] = None
 
 
 def cache_buffer_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -306,17 +381,26 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Zero cache for ``batch`` sequences of up to ``seq_len`` positions,
     ``prefill_len`` of them already filled."""
     _check_family(cfg)
-    if cfg.family == "ssm":
+    kv = (batch, cfg.n_kv_heads_padded, cache_buffer_len(cfg, seq_len),
+          cfg.head_dim_)
+    cache = LMCache(prefill_len)
+    if _recurrent(cfg):
         conv, h = SSM.init_paged_state(cfg, batch, dtype, device)
         L_ = cfg.n_layers
-        return LMCache(prefill_len,
-                       conv=conv[None].repeat(L_, 1, 1, 1),
-                       ssm=h[None].repeat(L_, 1, 1, 1, 1))
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads_padded,
-             cache_buffer_len(cfg, seq_len), cfg.head_dim_)
-    return LMCache(prefill_len,
-                   torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        cache.conv = conv[None].repeat(L_, 1, 1, 1)
+        cache.ssm = h[None].repeat(L_, 1, 1, 1, 1)
+    else:
+        cache.attn_k, cache.attn_v = _zeros_kv((cfg.n_layers,) + kv, dtype,
+                                               device)
+    if cfg.shared_attn_every:
+        cache.shared_k, cache.shared_v = _zeros_kv(
+            (_n_shared_apps(cfg),) + kv, dtype, device)
+    return cache
+
+
+def _zeros_kv(shape, dtype, device):
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _ring_layout(k, W: int):
@@ -339,27 +423,33 @@ def _ring_pad(k, W: int, dtype):
 
 
 def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
-            cache_len: Optional[int] = None):
-    """Run the prompts tokens (B, S); returns (last-token logits (B, Vp),
-    the primed cache of ``cache_len`` positions, default S)."""
-    x = _embed_tokens(params, cfg, tokens)
+            cache_len: Optional[int] = None, prefix_embeds=None):
+    """Run the prompts tokens (B, S), after ``prefix_embeds`` (B, P, d)
+    when given; returns (last-token logits (B, Vp), the primed cache of
+    ``cache_len`` positions, default P + S)."""
+    x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     cache_len = cache_len or S
     cache = init_cache(cfg, B, cache_len, cfg.compute_dtype, prefill_len=S,
                        device=x.device)
-    if cfg.family == "ssm":
+    W = cache_buffer_len(cfg, cache_len)
+    if _recurrent(cfg):
         # the prompt as ONE chunk of the serving recurrence from a zero
         # carry: the carry it leaves is bit-identical to any other
         # chunking of the same tokens (the paged engine's)
         zero = SSM.init_paged_state(cfg, B, cfg.compute_dtype, x.device)
         for i, blk in enumerate(params.blocks):
+            app = _shared_app(cfg, i)
+            if app is not None:
+                x, (k, v) = _apply_attn_block(params.shared, x, be, cfg, i)
+                cache.shared_k[app] = _ring_pad(k, W, cfg.compute_dtype)
+                cache.shared_v[app] = _ring_pad(v, W, cfg.compute_dtype)
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
             y, (cache.conv[i], cache.ssm[i]) = SSM.paged_step(
                 blk.mixer, h, be, cfg, zero)
             x = x + y
         x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
         return _unembed(params, cfg, x, be)[:, 0], cache
-    W = cache.attn_k.shape[3]
     for i, blk in enumerate(params.blocks):
         x, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
         cache.attn_k[i] = _ring_pad(k, W, cfg.compute_dtype)
@@ -375,7 +465,13 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     pos + 1)."""
     x = _embed_tokens(params, cfg, tokens)
     for i, blk in enumerate(params.blocks):
-        if cfg.family == "ssm":
+        if _recurrent(cfg):
+            app = _shared_app(cfg, i)
+            if app is not None:
+                x, _ = _apply_attn_block(
+                    params.shared, x, be, cfg, i,
+                    kv=(cache.shared_k[app], cache.shared_v[app]),
+                    pos=cache.pos)
             x, (cache.conv[i], cache.ssm[i]) = _apply_mamba_block(
                 blk, x, be, cfg, state=(cache.conv[i], cache.ssm[i]))
             continue
@@ -395,13 +491,16 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
 class PagedState:
     """Device-side serving state: attention K/V block pools, indexed
     through block tables (see ``repro_torch.serve.paged``), and the ssm
-    family's recurrent carries in per-SLOT rows, fixed-size for the slot's
-    lifetime.  Which request owns which slot row is host-side state
-    (``serve.paged.SlotStateStore``)."""
+    and hybrid families' recurrent carries in per-SLOT rows, fixed-size
+    for the slot's lifetime.  The hybrid's shared block has a pool per
+    application, read through the same block tables.  Which request owns
+    which slot row is host-side state (``serve.paged.SlotStateStore``)."""
     attn_k: Optional[torch.Tensor] = None     # (L, P, Hkv, BS, hd)
     attn_v: Optional[torch.Tensor] = None
     conv: Optional[torch.Tensor] = None       # (L, slots, K-1, ch)
     ssm: Optional[torch.Tensor] = None        # (L, slots, nh, Phd, N) f32
+    shared_k: Optional[torch.Tensor] = None   # (napps, P, Hkv, BS, hd)
+    shared_v: Optional[torch.Tensor] = None
 
 
 def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -409,19 +508,24 @@ def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device="cuda") -> PagedState:
     """Zero serving state; block 0 of every pool is the null sink, and
     zero-init keeps it finite for the masked reads inactive slots discard.
-    ``slots`` sizes the ssm family's per-slot carry rows; they are
+    ``slots`` sizes the recurrent families' per-slot carry rows; they are
     re-zeroed by :func:`paged_prefill` whenever a chunk starts at
     position 0 (fresh admission or recompute-resume)."""
     _check_family(cfg)
-    if cfg.family == "ssm":
+    pool = (num_blocks, cfg.n_kv_heads_padded, block_size, cfg.head_dim_)
+    ps = PagedState()
+    if _recurrent(cfg):
         conv, h = SSM.init_paged_state(cfg, slots, dtype, device)
         L_ = cfg.n_layers
-        return PagedState(conv=conv[None].repeat(L_, 1, 1, 1),
-                          ssm=h[None].repeat(L_, 1, 1, 1, 1))
-    shape = (cfg.n_layers, num_blocks, cfg.n_kv_heads_padded, block_size,
-             cfg.head_dim_)
-    return PagedState(torch.zeros(shape, dtype=dtype, device=device),
-                      torch.zeros(shape, dtype=dtype, device=device))
+        ps.conv = conv[None].repeat(L_, 1, 1, 1)
+        ps.ssm = h[None].repeat(L_, 1, 1, 1, 1)
+    else:
+        ps.attn_k, ps.attn_v = _zeros_kv((cfg.n_layers,) + pool, dtype,
+                                         device)
+    if cfg.shared_attn_every:
+        ps.shared_k, ps.shared_v = _zeros_kv((_n_shared_apps(cfg),) + pool,
+                                             dtype, device)
+    return ps
 
 
 def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
@@ -429,11 +533,18 @@ def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
                 rows=slice(None), seg_len=None, active=None):
     """Layer stack shared by paged prefill chunks and slot decode; K/V go
     through ``block_tables`` into the pools (in place), each layer with
-    its own window.  The ssm family's carries are the slot ``rows`` of
-    ``ps.conv``/``ps.ssm`` (aligned with x's batch), advanced in place.
+    its own window.  The recurrent families' carries are the slot
+    ``rows`` of ``ps.conv``/``ps.ssm`` (aligned with x's batch), advanced
+    in place; the hybrid's shared block writes its application's pool.
     Returns logits."""
-    if cfg.family == "ssm":
+    if _recurrent(cfg):
         for i, blk in enumerate(params.blocks):
+            app = _shared_app(cfg, i)
+            if app is not None:
+                x, _ = _apply_attn_block(params.shared, x, be, cfg, i,
+                                         paged_kv=(
+                    ps.shared_k[app], ps.shared_v[app], block_tables, qpos,
+                    decode_from))
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
             y, (ps.conv[i, rows], ps.ssm[i, rows]) = SSM.paged_step(
                 blk.mixer, h, be, cfg, (ps.conv[i, rows], ps.ssm[i, rows]),
@@ -465,7 +576,7 @@ def paged_prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     qpos = pos_start[:, None] + torch.arange(C, device=x.device)[None, :]
     dfrom = torch.full((B,), int(n_prompt), dtype=qpos.dtype,
                        device=x.device)
-    if cfg.family != "ssm":
+    if not _recurrent(cfg):
         return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom)
     rows = slice(slot, slot + 1)
     fresh = pos_start[0] == 0

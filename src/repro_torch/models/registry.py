@@ -1,6 +1,7 @@
 """Model registry: one uniform interface over the ported families
-(counterpart of ``repro/models/registry.py``; dense, moe and ssm so
-far)."""
+(counterpart of ``repro/models/registry.py``): every decoder-only family,
+dense, moe, ssm, hybrid and vlm.  The enc-dec and audio families are
+refused until ``encdec.py`` is ported."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,9 +16,11 @@ class Model:
     cfg: ModelConfig
     init: Callable                    # (generator, device) -> params
     forward_train: Callable
-    # ^ (params, tokens, be) -> (logits, aux); the ssm family only so far
+    # ^ (params, tokens, be, prefix_embeds=None) -> (logits, aux); the
+    #   ssm and hybrid families only so far
     prefill: Callable
-    # ^ (params, tokens, be, cache_len=None) -> (logits, lm.LMCache)
+    # ^ (params, tokens, be, cache_len=None, prefix_embeds=None)
+    #   -> (logits, lm.LMCache)
     decode: Callable
     # ^ (params, tokens, cache, be) -> (logits, lm.LMCache)
     init_cache: Callable
@@ -32,16 +35,21 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
+    if cfg.family in ("encdec", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (models/encdec.py) is not "
+            "ported yet")
     lm._check_family(cfg)
 
     def init(generator, device="cuda"):
         return lm.init_lm(cfg, generator, device)
 
-    def fwd(params, tokens, be):
-        return lm.forward_train(params, cfg, be, tokens)
+    def fwd(params, tokens, be, prefix_embeds=None):
+        return lm.forward_train(params, cfg, be, tokens, prefix_embeds)
 
-    def pf(params, tokens, be, cache_len=None):
-        return lm.prefill(params, cfg, be, tokens, cache_len=cache_len)
+    def pf(params, tokens, be, cache_len=None, prefix_embeds=None):
+        return lm.prefill(params, cfg, be, tokens, cache_len=cache_len,
+                          prefix_embeds=prefix_embeds)
 
     def dec(params, tokens, cache, be):
         return lm.decode(params, cfg, be, tokens, cache)

@@ -421,7 +421,12 @@ def write_trace(path: os.PathLike, events: Optional[List[Event]] = None,
     log = log if log is not None else TRACE
     if events is None:
         events = log.snapshot()
-    events = sorted(events, key=lambda e: e[0])
+    # every part of the document from the events as the file keeps them
+    # (µs rounded to 3 places): a re-export of the file is then the same
+    # document, where durations taken from unrounded host clock readings
+    # differed in their last place
+    events = _events_from_json(_events_to_json(
+        sorted(events, key=lambda e: e[0])))
     doc = perfetto(events, slots=slots)
     doc["reproTrace"] = {
         "schema": TRACE_SCHEMA_VERSION,

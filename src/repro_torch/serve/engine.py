@@ -18,12 +18,14 @@ the slots that are not decoding, and ``SlotStateStore`` records which
 request owns which row.  The step functions run eagerly: PyTorch has no ``jit`` to
 stage, and the pools are updated in place instead of donated.
 
-``PagedEngine(tuner=)`` takes a ``tune.online.OnlineTuner``: ``run()``
-starts it and stops it on drain or on a raise.  Routing runs on every
-call here (the reference routes at trace time), so each step runs under
-``tune.profile.pinned()``: a profile the tuner publishes mid-step is
-installed at the next step boundary, and :attr:`PagedEngine.steps_by_gen`
-counts the steps run under each profile generation.
+``PagedEngine(tuner=)`` takes a ``tune.online.OnlineTuner`` and polls it
+after each step: its cycles run on the engine's thread between two
+steps, so a sweep times an idle card.  Routing runs on every call here
+(the reference routes at trace time), so each step runs under
+``tune.profile.pinned()``: a profile that another thread publishes
+mid-step (a tuner's background loop, for one) is installed at the next
+step boundary, and :attr:`PagedEngine.steps_by_gen` counts the steps run
+under each profile generation.
 
 :class:`ContinuousBatcher` is the wave-based reference: a wave of up to
 ``slots`` requests shares one left-padded prefill (``lm.prefill``, whose
@@ -80,7 +82,7 @@ def _round_up(n: int, m: int) -> int:
 class PagedEngine:
     """Slot-level continuous batching over a paged KV cache (see module
     docstring).  ``device`` defaults to the card; tests pass ``"cpu"``.
-    ``tuner`` is an optional online tuner run for ``run()``'s lifetime."""
+    ``tuner`` is an optional online tuner, polled after each step."""
 
     TICK_SAMPLE = 8
 
@@ -154,6 +156,8 @@ class PagedEngine:
             if profile_mod.generation() != gen:
                 raise RuntimeError("a profile swap reached a step in flight")
         self.steps_by_gen[gen] += 1
+        if self.tuner is not None:
+            self.tuner.poll()
         return worked
 
     def _step(self) -> bool:
@@ -191,29 +195,21 @@ class PagedEngine:
         return worked
 
     def run(self) -> Dict[int, List[int]]:
-        if self.tuner is not None:
-            self.tuner.start()      # a no-op under REPRO_ONLINE_TUNE=0
-        try:
-            stall = 0
-            while True:
-                if self.step():
-                    stall = 0
-                    continue
-                if self._pending:
-                    self._drain()
-                    continue
-                if not self.scheduler.has_work():
-                    break
-                stall += 1
-                if stall > 10000:   # fail loudly, never hang
-                    raise RuntimeError("paged engine stalled: "
-                                       f"{self.scheduler.active()} live, "
-                                       f"{len(self.scheduler.queue)} queued")
-        finally:
-            # the tuner thread joins before run() returns, on drain or on
-            # a raise: no timing work outlives the engine loop
-            if self.tuner is not None:
-                self.tuner.stop()
+        stall = 0
+        while True:
+            if self.step():
+                stall = 0
+                continue
+            if self._pending:
+                self._drain()
+                continue
+            if not self.scheduler.has_work():
+                break
+            stall += 1
+            if stall > 10000:   # fail loudly, never hang
+                raise RuntimeError("paged engine stalled: "
+                                   f"{self.scheduler.active()} live, "
+                                   f"{len(self.scheduler.queue)} queued")
         return self.done
 
     # -- internals ---------------------------------------------------------

@@ -25,6 +25,22 @@ What differs from the reference, where routing happens at jit trace time:
 * The reference's ``interpret=`` has no counterpart: ``device`` (the
   card where there is one) decides what is timed, and the profile's mode
   is its type.
+* On the card a verdict is installed only from timings worth the name:
+  at least :data:`CARD_WARMUP` warm-up call and :data:`CARD_REPS`
+  repeats (the reference's defaults, no warm-up and one repeat, are
+  harmless in its interpret mode but here time start-up), operands drawn
+  on the card (``search._maker``), and each sweep's first library call of
+  a letter made before any timing (``search.budgeted_sweep``): a new
+  thread's first cuBLAS call on its stream sets up a handle and a
+  workspace (a first batched einsum took 104 ms on an NVIDIA H100 80GB
+  HBM3 at 700 W, ``chip_smoke.py`` "online grouped").  And the card is
+  idle while a sweep times: an engine serving with the tuner runs the
+  cycle itself, on its own thread between two steps (:meth:`poll`), and
+  the sweep waits for the device first.  Timed beside the engine's
+  kernels, from a thread of its own, olmo-1b's M = 45 classes read
+  1.35-2.21x in the kernel's favour where the idle card gives cuBLAS
+  1.18-1.94x (NVIDIA H100 80GB HBM3, 700 W, ``chip_smoke.py`` "online
+  serve" with the tuner on its own thread).
 * The port's route log counts every executed call (the reference
   counts trace-time calls, which stop once a step is compiled), so a
   class's decayed count keeps growing with steady serving and would pass
@@ -40,8 +56,8 @@ What differs from the reference, where routing happens at jit trace time:
   while the vocabulary head's class (olmo-1b's representative 46341,
   about 1 GB of operands drawn on the host) stays out.
 
-``REPRO_ONLINE_TUNE=0`` makes :meth:`OnlineTuner.start` a no-op (manual
-:meth:`cycle` calls still work).  Each cycle bumps ``tune.online.cycles``
+``REPRO_ONLINE_TUNE=0`` makes :meth:`OnlineTuner.start` and
+:meth:`OnlineTuner.poll` no-ops (manual :meth:`cycle` calls still work).  Each cycle bumps ``tune.online.cycles``
 / ``classes_retuned`` / ``swaps``, records ``tune.online.cycle_us`` and
 lands a ``TUNE_CYCLE`` event with its wall time in the flight recorder;
 an error inside the background loop counts ``tune.online.errors`` and
@@ -75,6 +91,8 @@ _LOG = logging.getLogger("repro_torch.tune")
 #: (measured by ``tune_grouped_class``, recorded under the profile's
 #: ``grouped:`` namespace); everything else re-times as 2-D.
 _GROUPED_OPS = ("batched_gemm", "ragged_gemm")
+#: the least warm-up and repeats of a timing on the card
+CARD_WARMUP, CARD_REPS = 1, 3
 
 
 def enabled() -> bool:
@@ -143,10 +161,14 @@ class CycleReport:
 class OnlineTuner:
     """Background re-tuner: windowed traffic in, profile swaps out.
 
+    * ``poll()`` — a cycle on the caller's thread once ``interval_s``
+      seconds have passed since the first poll or the last cycle.
+      ``PagedEngine(tuner=)`` polls after each step, so that a sweep
+      times the card between two steps.
     * ``start()`` / ``stop()`` — a daemon thread runs :meth:`cycle` every
-      ``interval_s`` seconds, waiting first; ``stop`` is idempotent, safe
-      with requests in flight, and joins the thread with a timeout.
-      ``PagedEngine(tuner=)`` does this around ``run()``.
+      ``interval_s`` seconds, waiting first, for a caller with no loop
+      of its own to poll from; ``stop`` is idempotent, safe with requests
+      in flight, and joins the thread with a timeout.
     * ``cycle()`` — one synchronous pass.
 
     ``sweeper`` injects the measuring stage (``f(targets, budget=) ->
@@ -179,6 +201,7 @@ class OnlineTuner:
         # (kind, class-key) -> traffic weight when last tuned
         self._done: Dict[Tuple[str, str], float] = {}
         self._cycle_lock = threading.Lock()     # one cycle at a time
+        self._due: Optional[float] = None       # poll()'s next cycle
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._stream = None                     # the card's timing stream
@@ -197,15 +220,23 @@ class OnlineTuner:
                                 retune_ratio=self.retune_ratio,
                                 top_k=self.top_k, max_dim=self.max_dim)
 
+    def timing(self) -> Tuple[int, int]:
+        """(warm-up, repeats) of each timing: as given on the CPU, at least
+        (:data:`CARD_WARMUP`, :data:`CARD_REPS`) on the card."""
+        if self.device.type == "cuda":
+            return max(self.warmup, CARD_WARMUP), max(self.reps, CARD_REPS)
+        return self.warmup, self.reps
+
     def _sweep(self, targets: Sequence[TuneTarget]):
         if self._sweeper is not None:
             return self._sweeper(targets, budget=self.budget)
         from repro_torch.tune import search
+        warmup, reps = self.timing()
 
         def run():
             return search.budgeted_sweep(
                 targets, budget=self.budget, top=self.top,
-                warmup=self.warmup, reps=self.reps, device=self.device,
+                warmup=warmup, reps=reps, device=self.device,
                 grouped_G=self.grouped_G, device_kind=self._device_kind)
         if self.device.type != "cuda":
             return run()
@@ -270,6 +301,32 @@ class OnlineTuner:
             return CycleReport(self.cycles, len(targets), len(tuned),
                                timings, swapped, wall_us)
 
+    def _safe_cycle(self) -> Optional[CycleReport]:
+        try:
+            return self.cycle()
+        except Exception:   # noqa: BLE001 — tuning never ends serving
+            obs.counter("tune.online.errors").inc()
+            _LOG.exception("online tune cycle failed; the profile "
+                           "stays as it was")
+            return None
+
+    def poll(self) -> Optional[CycleReport]:
+        """One cycle on the caller's thread when ``interval_s`` has passed
+        since the first poll or the last cycle, else nothing.  A no-op
+        under ``REPRO_ONLINE_TUNE=0`` and while the background loop runs;
+        an error is counted and never raised."""
+        if not enabled() or self.running:
+            return None
+        now = time.perf_counter()
+        if self._due is None:
+            self._due = now + self.interval_s
+        if now < self._due:
+            return None
+        try:
+            return self._safe_cycle()
+        finally:
+            self._due = time.perf_counter() + self.interval_s
+
     # -- background lifecycle ----------------------------------------------
 
     @property
@@ -295,12 +352,7 @@ class OnlineTuner:
         # wait first: traffic needs a beat to accumulate, and a stop()
         # right after start() exits without a cycle
         while not self._stop.wait(self.interval_s):
-            try:
-                self.cycle()
-            except Exception:   # noqa: BLE001 — tuning never ends serving
-                obs.counter("tune.online.errors").inc()
-                _LOG.exception("online tune cycle failed; the profile "
-                               "stays as it was")
+            self._safe_cycle()
 
     def stop(self, timeout: float = 30.0) -> bool:
         """Signal and join the background loop; True when the thread is

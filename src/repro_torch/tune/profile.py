@@ -73,6 +73,10 @@ class ProfileEntry:
     kernel: Optional[Measurement]
     library: Optional[Measurement]
     origin: str = "sweep"             # "sweep" (offline) | "online"
+    #: the kernel's load path the timing took: "ring" (cp.async) or
+    #: "scalar" for the real and grouped kernels, "complex" for C/Z (one
+    #: path); None in a profile written before it was recorded
+    path: Optional[str] = None
 
     @property
     def measured(self) -> bool:
@@ -95,6 +99,7 @@ class ProfileEntry:
             "kernel": self.kernel.to_json() if self.kernel else None,
             "library": self.library.to_json() if self.library else None,
             "origin": self.origin,
+            "path": self.path,
         }
 
     @classmethod
@@ -104,6 +109,7 @@ class ProfileEntry:
             Measurement.from_json(d["kernel"]) if d.get("kernel") else None,
             Measurement.from_json(d["library"]) if d.get("library") else None,
             d.get("origin", "sweep"),
+            d.get("path"),
         )
 
     def better_than(self, other: "ProfileEntry") -> bool:

@@ -15,6 +15,18 @@ candidates plus the library.  The prior never decides, it only prunes.
   ``api.install`` does).
 * Grouped classes time ``batched_gemm`` with each candidate's blocks
   against the executor's library einsum.
+* A class is timed at its representative with the stored operands' row
+  lengths rounded to the letter's 16-byte grain (:func:`timed_shape`):
+  the kernels take their cp.async ring only for 16-byte-aligned rows, and
+  a served model's shapes are aligned, so an odd representative (11,
+  5793, 11585) would time the scalar path that the class's traffic does
+  not take.  The entry records the path that was timed
+  (``ProfileEntry.path``).  The buckets stay the reference's.
+* Operands are normal values from a generator seeded with :data:`SEED`:
+  on the CPU drawn on the host in f64, so a CPU sweep is deterministic;
+  on the card drawn there, in the letter's plane type, from a
+  ``torch.Generator`` on the card, so a class's operands (up to some
+  34 M values) cost no host time beside a serving engine.
 
 A sweep makes its operands, launches and times on the caller's current
 CUDA stream and never synchronises the device, so
@@ -77,20 +89,83 @@ def candidates(letter: str, trans: str, M: int, N: int, K: int,
 # Benchmark one size class.
 # --------------------------------------------------------------------------
 
+def _dtype(letter: str) -> torch.dtype:
+    return {**kernelgen.BLAS_DTYPES, **kernelgen.FRAMEWORK_DTYPES}[letter]
+
+
+def grain(letter: str) -> int:
+    """Elements of the letter's type in 16 bytes: the row grain of the
+    kernels' cp.async ring (S 4, D 2, H 8, C 2, Z 1)."""
+    return max(1, 16 // _dtype(letter).itemsize)
+
+
+def _on_grain(x: int, g: int) -> int:
+    """``x`` rounded up to a multiple of ``g`` where that stays in x's
+    bucket, else down; ``x`` itself when neither does."""
+    b = classes_mod.bucket_index(x)
+    for y in (-(x // -g) * g, x // g * g):
+        if y >= 1 and classes_mod.bucket_index(y) == b:
+            return y
+    return x
+
+
+def timed_shape(sc: SizeClass) -> Tuple[int, int, int]:
+    """The (M, N, K) a class is timed at: its representative, with the
+    row length of each stored operand (A's K for N, its M for T; B's N
+    for N, its K for T) on the letter's 16-byte grain, inside the class's
+    bucket."""
+    M, N, K = classes_mod.representative(sc)
+    g = grain(sc.letter)
+    if sc.trans[0] == "N":
+        K = _on_grain(K, g)
+    else:
+        M = _on_grain(M, g)
+    if sc.trans[1] == "N":
+        N = _on_grain(N, g)
+    else:
+        K = _on_grain(K, g)
+    return M, N, K
+
+
 def _maker(letter: str, device):
-    """Seeded operand factory: normal values made on the host from one
-    ``torch.Generator`` (so a CPU and a card sweep time the same numbers),
-    complex as re + i im with both parts normal."""
+    """Seeded operand factory (module docstring): normal values, complex
+    as re + i im with both parts normal."""
+    dev = torch.device(device)
+    dt = _dtype(letter)
+    cx = kernelgen.IS_COMPLEX.get(letter, False)
+    if dev.type == "cuda":
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        plane = dt.to_real() if cx else (
+            dt if dt in (torch.float32, torch.float64) else torch.float32)
+
+        def mk(shape):
+            x = torch.randn(shape, generator=g, dtype=plane, device=dev)
+            if cx:
+                x = torch.complex(x, torch.randn(shape, generator=g,
+                                                 dtype=plane, device=dev))
+            return x.to(dt)
+        return mk
     g = torch.Generator().manual_seed(SEED)
-    dt = {**kernelgen.BLAS_DTYPES, **kernelgen.FRAMEWORK_DTYPES}[letter]
 
     def mk(shape):
         x = torch.randn(shape, generator=g, dtype=torch.float64)
-        if kernelgen.IS_COMPLEX.get(letter, False):
+        if cx:
             x = torch.complex(x, torch.randn(shape, generator=g,
                                              dtype=torch.float64))
         return x.to(dt).to(device)
     return mk
+
+
+def timed_path(sc: SizeClass, a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel's load path for stored ``a`` and ``b`` of class ``sc``:
+    "complex" for C/Z, else the real kernel's by strides ("ring" or
+    "scalar", ``iaat_gemm.load_mode``)."""
+    from repro_torch.kernels import iaat_gemm
+    if kernelgen.IS_COMPLEX.get(sc.letter, False):
+        return "complex"
+    opa = a if sc.trans[0] == "N" else a.T
+    opb = b if sc.trans[1] == "N" else b.T
+    return "ring" if iaat_gemm.load_mode(opa, opb) else "scalar"
 
 
 def _operands(sc: SizeClass, M: int, N: int, K: int, device="cpu"):
@@ -102,11 +177,12 @@ def _operands(sc: SizeClass, M: int, N: int, K: int, device="cpu"):
 
 def tune_class(sc: SizeClass, *, top: int = 4, warmup: int = 1,
                reps: int = 5, device="cuda") -> ProfileEntry:
-    """Measure one size class at its representative shape; returns the
-    entry (best kernel sig + both timings) to record in the profile."""
+    """Measure one size class at :func:`timed_shape`; returns the entry
+    (best kernel sig, both timings, the load path timed) to record in the
+    profile."""
     from repro_torch import api
     from repro_torch.kernels import iaat_gemm
-    M, N, K = classes_mod.representative(sc)
+    M, N, K = timed_shape(sc)
     a, b = _operands(sc, M, N, K, device)
     lib = try_measure(lambda: api._lib_gemm(a, b, None, 1.0, 0.0, sc.trans),
                       what=f"{sc.key} library", device=device,
@@ -123,7 +199,7 @@ def tune_class(sc: SizeClass, *, top: int = 4, warmup: int = 1,
                         warmup=warmup, reps=reps)
         if m is not None and (best is None or m.median_us < best.median_us):
             best_sig, best = sig, m
-    return ProfileEntry(best_sig, best, lib)
+    return ProfileEntry(best_sig, best, lib, path=timed_path(sc, a, b))
 
 
 def tune_grouped_class(sc: SizeClass, *, G: int = 4, top: int = 4,
@@ -132,11 +208,12 @@ def tune_grouped_class(sc: SizeClass, *, G: int = 4, top: int = 4,
     """Measure one grouped size class ON the grouped kernel: G per-group
     (C, K, N) problems (C = M of the class) through one ``batched_gemm``
     launch per candidate's blocks, against the executor's library einsum.
-    Only the real letters have a grouped kernel."""
+    Only the real letters have a grouped kernel.  K and N are put on the
+    grain as :func:`timed_shape` puts them (x and w are stored NN)."""
     from repro_torch.kernels import grouped_gemm as _gg
     if sc.letter not in kernelgen.KERNEL_LETTERS:
         raise ValueError(f"no grouped kernel for letter {sc.letter!r}")
-    C, N, K = classes_mod.representative(sc)
+    C, N, K = timed_shape(dataclasses.replace(sc, trans="NN"))
     mk = _maker(sc.letter, device)
     x, w = mk((G, C, K)), mk((G, K, N))
     lib = try_measure(lambda: torch.einsum("gck,gkn->gcn", x, w),
@@ -151,7 +228,7 @@ def tune_grouped_class(sc: SizeClass, *, G: int = 4, top: int = 4,
                         warmup=warmup, reps=reps)
         if m is not None and (best is None or m.median_us < best.median_us):
             best_sig, best = sig, m
-    return ProfileEntry(best_sig, best, lib)
+    return ProfileEntry(best_sig, best, lib, path=_gg.load_path(x, w))
 
 
 def _new_profile(device, device_kind: Optional[str]) -> DeviceProfile:
@@ -180,6 +257,23 @@ class TuneTarget:
     weight: float = 0.0
 
 
+def _prime_library(targets: Sequence[TuneTarget], device) -> None:
+    """One small library call per (harness, letter) of ``targets`` on the
+    current stream, then a wait for the whole device: the first cuBLAS
+    call of a thread on a stream sets up its handle and workspace, and
+    work queued before the sweep (an engine's last step, the engine then
+    held at the online tuner's gate) would share the SMs with a timing;
+    no timing may hold either."""
+    from repro_torch import api
+    for kind, letter in sorted({(t.kind, t.sc.letter) for t in targets}):
+        mk = _maker(letter, device)
+        if kind == "grouped":
+            torch.einsum("gck,gkn->gcn", mk((2, 8, 8)), mk((2, 8, 8)))
+        else:
+            api._lib_gemm(mk((8, 8)), mk((8, 8)), None, 1.0, 0.0, "NN")
+    torch.cuda.synchronize(device)
+
+
 def budgeted_sweep(targets: Sequence[TuneTarget], *, budget: int = 8,
                    top: int = 1, warmup: int = 0, reps: int = 1,
                    device="cuda", grouped_G: int = 4,
@@ -189,13 +283,17 @@ def budgeted_sweep(targets: Sequence[TuneTarget], *, budget: int = 8,
 
     ``budget`` caps the stopwatch timings per call (each class costs at
     most ``1 + top``: the library plus the pruned candidates); a class is
-    either fully timed or not touched.  Returns ``(delta_profile,
+    either fully timed or not touched.  On the card the library is first
+    called once per letter and harness of ``targets`` and the device
+    waited for (:func:`_prime_library`).  Returns ``(delta_profile,
     tuned_targets, timings_spent)``; the delta holds only the classes
     tuned, ready to merge."""
     prof = _new_profile(device, device_kind)
     per_class = 1 + max(1, top)
     spent = 0
     tuned: List[TuneTarget] = []
+    if torch.device(device).type == "cuda":
+        _prime_library(targets, device)
     with obs.span("tune.online_sweep"):
         for t in targets:
             if spent + per_class > budget:

@@ -280,3 +280,98 @@ def test_kernel_choice_is_by_type():
         assert tc == ("flash_attention_tc" if D in (64, 128, 256)
                       else "flash_attention")
         assert fa.kernel_for(torch.float32, D) == "flash_attention"
+
+
+# -- head dims between the built instances: zero-padded along D ---------------
+
+#: (D, padded D): smollm-smoke's head dim and zamba2-7b's
+PADDED = [(20, 32), (112, 128)]
+
+
+@pytest.mark.parametrize("D,Dp", PADDED)
+@pytest.mark.parametrize("causal,window,q_offset", [(True, None, 0),
+                                                    (True, 24, 0),
+                                                    (False, None, 0),
+                                                    (True, None, 13)])
+def test_padded_head_dim_matches_jax(D, Dp, causal, window, q_offset):
+    """The wrapper's padding path (on the CPU its plain version runs the
+    same padded operands the kernel would get) against the reference's
+    Pallas kernel, which takes the head dim as it is, at the reference's
+    sweep tolerance; GQA 4 over 2."""
+    assert fa.padded_head_dim(D) == Dp
+    q, k, v = _inputs(D + q_offset, 2, 4, 2, 37, 50, D)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = _jax_flash(q, k, v, 32, 32, **kw)
+    got = _port(fa.flash_attention, q, k, v, **kw)
+    assert got.shape == want.shape == (2, 4, 37, D)
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.parametrize("D,Dp", PADDED)
+def test_padded_head_dim_bf16_within_one_step(D, Dp):
+    q, k, v = _inputs(D, 1, 4, 1, 29, 29, D)
+    want = _jax_flash(q, k, v, 32, 32, jnp.bfloat16, window=8)
+    got = _port(fa.flash_attention, q, k, v, torch.bfloat16, window=8)
+    assert np.all(np.abs(got - want) <= BF16_STEP * np.maximum(
+        np.abs(got), np.abs(want)) + 1e-6)
+
+
+@pytest.mark.parametrize("D,Dp", PADDED)
+def test_padded_head_dim_keeps_the_callers_scale(D, Dp):
+    """1/sqrt(D) of the unpadded D is the right scale: the same call with
+    1/sqrt(D_padded) misses the tolerance by far, so a wrapper that took
+    the padded D's default would fail the parity test above."""
+    q, k, v = _inputs(7, 1, 4, 2, 40, 40, D)
+    want = _jax_flash(q, k, v, 32, 32)
+    good = _port(fa.flash_attention, q, k, v, scale=D ** -0.5)
+    wrong = _port(fa.flash_attention, q, k, v, scale=Dp ** -0.5)
+    np.testing.assert_allclose(good, want, rtol=3e-5, atol=3e-5)
+    assert np.abs(wrong - want).max() > 100 * 3e-5
+
+
+def test_plain_version_gets_the_padded_operands(monkeypatch):
+    seen = []
+    plain = fa.flash_attention_plain
+
+    def spy(q, k, v, **kw):
+        seen.append((q.shape[3], k.shape[3], v.shape[3], kw["scale"]))
+        assert not q[..., 20:].any() and not v[..., 20:].any()
+        return plain(q, k, v, **kw)
+    monkeypatch.setattr(fa, "flash_attention_plain", spy)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 2, 1, 5, 5, 20))
+    out = fa.flash_attention(q, k, v)
+    assert seen == [(32, 32, 32, 20 ** -0.5)]
+    assert tuple(out.shape) == (1, 2, 5, 20)
+
+
+@pytest.mark.parametrize("D,Dp", PADDED)
+def test_card_call_launches_the_padded_instance(monkeypatch, D, Dp):
+    """A call on the card at D 20 or 112 launches the kernel at the padded
+    instance with the caller's scale (``_launch`` stubbed, so that it
+    runs without a card), and ``_full_attn`` under ``auto`` never takes
+    the chunked oracle for it."""
+    launched = []
+
+    def launch(q, k, v, causal, window, q_offset, scale):
+        launched.append((tuple(q.shape), tuple(k.shape), scale))
+        return torch.zeros(q.shape, dtype=q.dtype)
+
+    def no_oracle(*a, **kw):
+        raise AssertionError("routed to chunked_mha")
+    monkeypatch.setattr(fa, "_on_card", lambda t: True)
+    monkeypatch.setattr(fa, "_launch", launch)
+    monkeypatch.setattr(ref, "chunked_mha", no_oracle)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 2, 8, 2, 9, 9, D))
+    out = L._full_attn(q, k, v, api.named_policy("auto"), causal=True,
+                       window=None, q_offset=0, scale=D ** -0.5)
+    assert launched == [((2, 8, 9, Dp), (2, 2, 9, Dp), D ** -0.5)]
+    assert tuple(out.shape) == (2, 8, 9, D)
+
+
+def test_head_dim_past_256_raises_on_the_card(monkeypatch):
+    monkeypatch.setattr(fa, "_on_card", lambda t: True)
+    q = torch.zeros((1, 2, 4, 320))
+    with pytest.raises(NotImplementedError, match="above the largest"):
+        fa.flash_attention(q, q[:, :1], q[:, :1])
+    assert fa.padded_head_dim(256) == 256
+    assert fa.padded_head_dim(1) == 16

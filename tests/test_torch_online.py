@@ -524,9 +524,9 @@ def test_no_step_sees_two_profiles(smoke_f32, monkeypatch):
             published[0] += 1
         return p1, list(targets), 2 * len(targets)
 
-    e = _engine(model, params,
-                OnlineTuner(interval_s=0.001, retune_ratio=0.0,
-                            sweeper=swapping_sweeper))
+    tuner = OnlineTuner(interval_s=0.001, retune_ratio=0.0,
+                        sweeper=swapping_sweeper)
+    e = _engine(model, params, tuner)
     seen = []
     real = profile_mod.active_profile
     main = threading.get_ident()
@@ -539,7 +539,11 @@ def test_no_step_sees_two_profiles(smoke_f32, monkeypatch):
     monkeypatch.setattr(profile_mod, "active_profile", spy)
     for rid in range(len(prompts)):
         e.submit(Request(rid, prompts[rid], max_new=maxnew[rid]))
-    out = e.run()
+    assert tuner.start()            # the engine's polls wait meanwhile
+    try:
+        out = e.run()
+    finally:
+        assert tuner.stop()
     assert len(out) == len(prompts)
     assert published[0] >= 50
     per_step = {}
@@ -567,6 +571,10 @@ def test_pinned_defers_a_swap_to_the_end_of_the_step():
 
 
 def test_engine_run_starts_and_stops_the_tuner(smoke_f32):
+    """The engine drives its tuner from its own loop: it polls after every
+    step, on its own thread, and starts no background loop, so nothing of
+    the tuner runs beside a step or outlives run(), on drain or on a
+    raise."""
     cfg, model, params = smoke_f32
 
     class Spy:
@@ -581,15 +589,23 @@ def test_engine_run_starts_and_stops_the_tuner(smoke_f32):
             self.calls.append("stop")
             return True
 
+        def poll(self):
+            self.calls.append(("poll", threading.get_ident(),
+                               sum(e.steps_by_gen.values())))
+
     spy = Spy()
     e = _engine(model, params, spy)
     e.submit(Request(0, np.arange(3), max_new=2))
-    assert len(e.run()) == 1 and spy.calls == ["start", "stop"]
+    assert len(e.run()) == 1
+    steps = sum(e.steps_by_gen.values())
+    assert steps > 0 and spy.calls == [
+        ("poll", threading.get_ident(), i) for i in range(1, steps + 1)]
     e.submit(Request(1, np.arange(3), max_new=2))
     e.model = None                                 # the step raises
     with pytest.raises(AttributeError):
         e.run()
-    assert spy.calls == ["start", "stop", "start", "stop"]
+    assert not [c for c in spy.calls if c in ("start", "stop")]
+    assert len(spy.calls) == steps
 
 
 def test_serve_with_online_tune_and_trace_on_the_cpu(tmp_path):
@@ -695,3 +711,175 @@ def test_split_tickets_are_kept_per_stream(monkeypatch):
         gg.reset_launch_count()
     assert tickets[7] != tickets[9]
     assert set(iaat_gemm._tickets) >= {(cpu, 7), (cpu, 9)}
+
+
+# -- timings worth installing on the card --------------------------------------
+
+def test_card_timings_take_a_warm_up_and_three_repeats(monkeypatch):
+    """On the card the tuner passes at least one warm-up and three repeats
+    to the sweep (the launcher's reps=1 included); on the CPU what it was
+    given (the stream and the sweep stubbed, so that it runs without a
+    card)."""
+    seen = []
+
+    class FakeStream:
+        def __init__(self, device):
+            pass
+
+    class FakeContext:
+        def __init__(self, s):
+            pass
+
+        def __enter__(self):
+            pass
+
+        def __exit__(self, *exc):
+            pass
+
+    def fake_sweep(targets, **kw):
+        seen.append((kw["device"].type, kw["warmup"], kw["reps"]))
+        return _here(), [], 0
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream", FakeContext)
+    monkeypatch.setattr(search, "budgeted_sweep", fake_sweep)
+    t = [TuneTarget("gemm", SizeClass("S", "NN", 5, 5, 5), 3.0)]
+    for device, warmup, reps in (("cuda", 0, 1), ("cuda", 2, 7),
+                                 ("cpu", 0, 1)):
+        tn = OnlineTuner(device=device, warmup=warmup, reps=reps)
+        tn._sweep(t)
+    assert seen == [("cuda", 1, 3), ("cuda", 2, 7), ("cpu", 0, 1)]
+
+
+def test_card_operands_are_drawn_on_the_card(monkeypatch):
+    """On the card the operands come from a seeded generator on the card,
+    drawn there in the letter's plane type (stubbed, so that it runs
+    without a card); on the CPU from the host generator, in f64, as
+    before."""
+    gens, draws = [], []
+
+    class FakeGenerator:
+        def __init__(self, device="cpu"):
+            self.device = torch.device(device)
+            gens.append(self)
+
+        def manual_seed(self, seed):
+            self.seed = seed
+            return self
+
+    def fake_randn(shape, generator=None, dtype=None, device=None):
+        draws.append((generator.device.type, dtype,
+                      torch.device(device).type))
+        return torch.zeros(shape, dtype=dtype)
+    monkeypatch.setattr(torch, "Generator", FakeGenerator)
+    monkeypatch.setattr(torch, "randn", fake_randn)
+    for letter in ("H", "S", "D", "Z"):
+        search._maker(letter, "cuda")((4, 4))
+    assert all(g.device.type == "cuda" and g.seed == search.SEED
+               for g in gens)
+    assert draws == [("cuda", torch.float32, "cuda"),
+                     ("cuda", torch.float32, "cuda"),
+                     ("cuda", torch.float64, "cuda"),
+                     ("cuda", torch.float64, "cuda"),
+                     ("cuda", torch.float64, "cuda")]
+
+
+def test_cpu_operands_stay_deterministic():
+    a = search._maker("S", "cpu")((3, 5))
+    b = search._maker("S", "cpu")((3, 5))
+    assert a.device.type == "cpu" and torch.equal(a, b)
+    want = torch.randn((3, 5), generator=torch.Generator().manual_seed(
+        search.SEED), dtype=torch.float64).float()
+    assert torch.equal(a, want)
+
+
+def test_card_sweep_primes_the_library_before_timing(monkeypatch):
+    """On the card the sweep first calls the library once per harness and
+    letter of its targets, before any timing (stubbed, so that it runs
+    without a card)."""
+    order = []
+    monkeypatch.setattr(search, "_new_profile",
+                        lambda device, kind: _here())
+    monkeypatch.setattr(search, "_prime_library",
+                        lambda targets, device: order.append(
+                            ("prime", len(targets))))
+
+    def fake_tune(sc, **kw):
+        order.append(("time", sc.key))
+        return _entry(1.0, 2.0)
+    monkeypatch.setattr(search, "tune_class", fake_tune)
+    t = [TuneTarget("gemm", SizeClass("H", "NN", 2, 12, 11), 3.0)]
+    search.budgeted_sweep(t, budget=8, device="cuda")
+    search.budgeted_sweep(t, budget=8, device="cpu")
+    assert order == [("prime", 1), ("time", "H/NN/2-12-11"),
+                     ("time", "H/NN/2-12-11")]
+
+
+# -- polled cycles: the tuner on the engine's thread ---------------------------
+
+def test_poll_cycles_once_the_interval_has_passed(monkeypatch):
+    """The first poll starts the clock, a poll before ``interval_s`` does
+    nothing, one after it cycles on the caller's thread; nothing under the
+    kill switch or while the background loop runs."""
+    _route_traffic()
+    clock = [100.0]
+    monkeypatch.setattr(online.time, "perf_counter", lambda: clock[0])
+    tn = OnlineTuner(sweeper=_stub_sweeper(), interval_s=0.5)
+    assert tn.poll() is None and tn.cycles == 0
+    clock[0] += 0.4
+    assert tn.poll() is None and tn.cycles == 0
+    clock[0] += 0.1
+    rep = tn.poll()
+    assert rep is not None and rep.cycle == 1 and rep.swapped
+    assert tn.poll() is None                      # the clock restarted
+    clock[0] += 0.5
+    monkeypatch.setenv(online.KILL_SWITCH_ENV, "0")
+    assert tn.poll() is None and tn.cycles == 1
+    monkeypatch.delenv(online.KILL_SWITCH_ENV)
+    monkeypatch.setattr(OnlineTuner, "running", property(lambda self: True))
+    assert tn.poll() is None and tn.cycles == 1
+    monkeypatch.setattr(OnlineTuner, "running", property(lambda self: False))
+    assert tn.poll().cycle == 2
+
+
+def test_poll_counts_errors_and_never_raises(monkeypatch):
+    _route_traffic()
+
+    def broken(targets, *, budget):
+        raise RuntimeError("the stopwatch broke")
+    tn = OnlineTuner(sweeper=broken, interval_s=0.0)
+    assert [tn.poll() for _ in range(3)] == [None] * 3
+    assert obs.counter("tune.online.errors").value == 3
+    assert profile_mod.active_profile() is None
+
+
+def test_engine_cycles_its_tuner_between_steps(smoke_f32):
+    """A real tuner on the engine: its cycles run between steps (none
+    inside one) and publish at once, and the tokens equal a run with no
+    tuner."""
+    cfg, model, params = smoke_f32
+    ref = _engine(model, params)
+    ref.submit(Request(0, np.arange(3), max_new=4))
+    want = ref.run()
+    tuner = OnlineTuner(device="cpu", interval_s=0.0,
+                        sweeper=_stub_sweeper())
+    e = _engine(model, params, tuner)
+    inside = []
+    real_step = e._step
+
+    def step():
+        inside.append(True)
+        try:
+            return real_step()
+        finally:
+            inside.pop()
+    e._step = step
+    cycle = tuner.cycle
+
+    def counted():
+        assert not inside
+        return cycle()
+    tuner.cycle = counted
+    e.submit(Request(0, np.arange(3), max_new=4))
+    assert e.run() == want
+    assert tuner.cycles >= 1 and tuner.swaps >= 1 and not tuner.running
+    assert len(e.steps_by_gen) >= 2

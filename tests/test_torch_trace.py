@@ -217,3 +217,18 @@ def test_port_engine_trace_reduces_alike_in_both_packages():
         obs.counter("serve.preemptions").value > 0
     assert json.dumps(trace.perfetto(evs, slots=2), sort_keys=True) == \
         json.dumps(jtrace.perfetto(evs, slots=2), sort_keys=True)
+
+
+def test_reexport_is_identical_for_host_clock_times(tmp_path):
+    """A wait that the host clock puts just under a 0.05 µs boundary
+    (2000.04996 µs): the file keeps times to 1 ns, and its per-request
+    metrics (0.1 µs) and slices come from the times as it keeps them, so
+    a re-export of the file is the same document (metrics taken from the
+    raw times put the two documents' waits 0.1 µs apart)."""
+    evs = [(81234.5678 + t, *rest) for t, *rest in _stream()]
+    i = next(i for i, e in enumerate(evs) if e[1] == "ADMIT")
+    evs[i] = (81234.5678 + 2000.04996e-6, *evs[i][1:])
+    p = trace.write_trace(tmp_path / "host.json", evs, slots=3)
+    again = trace.write_trace(tmp_path / "again.json",
+                              trace.load_events(p), slots=3)
+    assert json.loads(again.read_text()) == json.loads(p.read_text())

@@ -358,3 +358,69 @@ def test_cli_refuses_the_card_without_one(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert main(["--letters", "S", "--quick"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+
+
+# -- the timed shape: on the ring's grain, inside the class -------------------
+
+@pytest.mark.parametrize("letter", ["S", "D", "H", "C", "Z"])
+@pytest.mark.parametrize("trans", ["NN", "NT", "TN", "TT"])
+def test_timed_shape_is_on_the_grain_and_in_the_class(letter, trans):
+    """Each stored operand's row length (A: K for N, M for T; B: N for N,
+    K for T) is a multiple of the letter's 16-byte grain, and the shape
+    stays in the class, whose buckets and representative are the
+    reference's."""
+    g = search.grain(letter)
+    assert g * torch.tensor([], dtype=search._dtype(letter)).element_size() \
+        == 16
+    for n in (11, 23, 91, 181, 362, 724, 1448, 2896, 5793, 11585):
+        sc = classes.size_class(n, 2 * n, n, letter, trans)
+        jsc = jclasses.size_class(n, 2 * n, n, letter, trans)
+        assert classes.representative(sc) == jclasses.representative(jsc)
+        M, N, K = search.timed_shape(sc)
+        assert classes.size_class(M, N, K, letter, trans) == sc
+        a_row = K if trans[0] == "N" else M
+        b_row = N if trans[1] == "N" else K
+        assert a_row % g == 0 and b_row % g == 0, (n, M, N, K)
+
+
+@pytest.mark.parametrize("letter,trans,path", [("S", "NN", "ring"),
+                                               ("H", "NT", "ring"),
+                                               ("D", "NN", "ring"),
+                                               ("S", "TN", "scalar"),
+                                               ("C", "NN", "complex")])
+def test_tune_class_records_the_path_it_timed(letter, trans, path):
+    """An aligned class times the IAAT kernel's cp.async ring, the path
+    the served shapes take (an op(A) read along M always takes the scalar
+    path); the entry records it, and it survives the profile's JSON."""
+    sc = classes.size_class(11, 11, 11, letter, trans)
+    e = search.tune_class(sc, top=1, reps=1, device="cpu")
+    assert e.path == path
+    M, N, K = search.timed_shape(sc)
+    a, b = search._operands(sc, M, N, K)
+    assert search.timed_path(sc, a, b) == path
+    prof = _here()
+    prof.record(sc, e)
+    assert DeviceProfile.from_json(prof.to_json()).lookup(sc).path == path
+    assert ProfileEntry.from_json({"sig": None, "kernel": None,
+                                   "library": None}).path is None
+
+
+def test_the_decode_classes_time_the_ring():
+    """The d_ff class of a served 1-2B model (representative 11585 for
+    8192) was timed on the scalar path; on the grain it takes the ring."""
+    sc = classes.size_class(4, 8192, 2048, "H", "NN")
+    M, N, K = classes.representative(sc)
+    assert (M, N, K) == (6, 11585, 2896)
+    a = torch.zeros((M, K), dtype=torch.bfloat16)
+    b = torch.zeros((K, N), dtype=torch.bfloat16)
+    from repro_torch.kernels import iaat_gemm
+    assert iaat_gemm.load_mode(a, b) == 0          # the representative
+    assert search.timed_shape(sc) == (6, 11592, 2896)
+    a, b = search._operands(sc, *search.timed_shape(sc))
+    assert search.timed_path(sc, a, b) == "ring"
+
+
+def test_grouped_class_times_the_ring():
+    sc = classes.size_class(8, 1408, 2048, "H", "NN")
+    e = search.tune_grouped_class(sc, G=2, top=1, reps=1, device="cpu")
+    assert e.path == "ring" and e.measured
