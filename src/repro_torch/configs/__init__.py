@@ -1,11 +1,11 @@
 """Config registry: ``get_config(arch_id)`` / ``get_smoke(arch_id)``.
 
 Arch ids use the dashed names; module files use underscores.  Every
-decoder-only architecture of the reference is registered: the dense
+architecture of the reference is registered, in its order: the dense
 (olmo-1b, gemma3-1b, smollm-360m, glm4-9b), MoE (moonshot-v1-16b-a3b,
 mixtral-8x22b), SSM (mamba2-780m), hybrid (zamba2-7b) and VLM
-(internvl2-2b) families.  The enc-dec seamless-m4t-large-v2 is not
-ported yet.
+(internvl2-2b) families, and the enc-dec seamless-m4t-large-v2 (family
+"audio").
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ ARCH_IDS: List[str] = [
     "gemma3-1b",
     "olmo-1b",
     "smollm-360m",
+    "seamless-m4t-large-v2",
     "internvl2-2b",
 ]
 

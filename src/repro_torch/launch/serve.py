@@ -7,9 +7,10 @@
 smollm-360m and glm4-9b, the MoE moonshot-v1-16b-a3b and mixtral-8x22b,
 the ssm mamba2-780m and the hybrid zamba2-7b (whose carries live in the
 engine's per-slot rows), and the VLM internvl2-2b, served on text as the
-reference serves it.  The enc-dec seamless-m4t-large-v2 is not
-registered: ``registry.build`` refuses the enc-dec and audio families, as
-the reference's launcher refuses them.
+reference serves it.  The enc-dec seamless-m4t-large-v2 is refused, as
+the reference's launcher refuses it: the paged engine has no enc-dec
+path (``registry.build`` gives that model no paged entries); it runs
+through ``registry.Model``'s ``prefill`` and ``decode``.
 
 Counterpart of ``repro/launch/serve.py``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch import api, configs
+from repro_torch.models import encdec
 from repro_torch.models.registry import build as build_model
 from repro_torch.obs import trace as trace_mod
 from repro_torch.serve import PagedEngine, Request
@@ -129,6 +131,8 @@ def main() -> None:
                          "--backend — library sends the model's matmuls "
                          "past route(), so the tuner sees little traffic)")
     args = ap.parse_args()
+    if configs.get_config(args.arch).family in encdec.FAMILIES:
+        raise SystemExit("use a decoder-only arch for the serve demo")
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "

@@ -1,6 +1,7 @@
-"""Transformer layers for serving: GQA attention (full, sliding-window;
-over a whole prompt, a ring KV buffer or a paged KV pool), the gated MLP
-and the MoE layer (counterpart of ``repro/models/layers.py``).
+"""Transformer layers: GQA attention (causal or not, full or
+sliding-window; over a whole prompt, a ring KV buffer, a paged KV pool or
+an encoder's precomputed K/V), the gated MLP and the MoE layer
+(counterpart of ``repro/models/layers.py``).
 
 Every projection goes through ``common.mm`` (the IAAT dispatch hook);
 attention over a whole prompt switches between the CUDA flash kernel and
@@ -10,7 +11,7 @@ reference's ``(d_in, d_out)`` layout, so every GEMM shape the Router sees
 is the reference's.  Reductions are taken in the same order and precision
 as the reference (f32 accumulation via operands widened to f32, in place
 of ``preferred_element_type``), because token identity in serving depends
-on them.  Cross attention waits for the enc-dec family.
+on them.
 """
 from __future__ import annotations
 
@@ -142,14 +143,16 @@ def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
     return torch.where(replay[:, None, :, None], outd, flash)
 
 
-def attention(p, x, be: Policy, cfg: ModelConfig, *,
+def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
               window: Optional[int] = None, kv_cache=None,
-              pos: Optional[int] = None, paged_kv=None):
-    """Causal self-attention layer.  Modes:
+              pos: Optional[int] = None, paged_kv=None, cross_kv=None):
+    """Attention layer.  Modes:
 
-      prefill: neither cache given; x holds positions 0..S-1, attended
-               through :func:`_full_attn`; returns (y, (k, v)), the roped
-               k and v (B, Hkv, S, hd) for the caller's cache.
+      prefill: no cache given; x holds positions 0..S-1 (q and k roped
+               there), attended through :func:`_full_attn`, causally
+               unless ``causal`` is False (the encoder); returns (y,
+               (k, v)), the roped k and v (B, Hkv, S, hd) for the
+               caller's cache.
       decode:  ``kv_cache = (k_buf, v_buf)`` (B, Hkv, W, hd), ``pos`` the
                token's position; writes its K/V into ring slot pos % W
                (in place), attends through :func:`decode_attend`; returns y.
@@ -157,13 +160,21 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *,
                decode_from (B,) or None)``; writes the chunk's K/V into
                the pools through the block table (in place), attends over
                the gathered pool; returns y.
+      cross:   ``cross_kv = (k, v)`` (B, Hkv, S_src, hd), projected from
+               the encoder's states; only q is projected, and neither q
+               nor k is roped; every query attends every key through
+               :func:`_full_attn`; returns y.
     The reference returns the updated buffers functionally; here they are
-    updated where they live, never copied.  The reference's non-causal
-    and cross-attention modes wait for the families that use them."""
+    updated where they live, never copied."""
     H, Hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads_padded, cfg.head_dim_
     scale = hd ** -0.5
     B, S, _ = x.shape
     q = _split_heads(mm(x, p.wq, be), H, hd)
+    if cross_kv is not None:
+        k, v = cross_kv
+        y = _full_attn(q, k, v, be, causal=False, window=None, q_offset=0,
+                       scale=scale)
+        return mm(_merge_heads(y), p.wo, be)
     k = _split_heads(mm(x, p.wk, be), Hkv, hd)
     v = _split_heads(mm(x, p.wv, be), Hkv, hd)
     if paged_kv is not None:
@@ -197,7 +208,7 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *,
     positions = torch.arange(S, device=x.device)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    y = _full_attn(q, k, v, be, causal=True, window=window, q_offset=0,
+    y = _full_attn(q, k, v, be, causal=causal, window=window, q_offset=0,
                    scale=scale)
     return mm(_merge_heads(y), p.wo, be), (k, v)
 

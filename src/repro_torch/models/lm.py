@@ -1,8 +1,8 @@
 """Decoder-only LM, every decoder-only family of the reference: the wave
 serving path (:func:`prefill`, :func:`decode` over an :class:`LMCache`),
 the paged serving path (:func:`paged_prefill`, :func:`paged_decode` over
-a :class:`PagedState`) and, for the SSM and hybrid families,
-:func:`forward_train` (counterpart of ``repro/models/lm.py``).
+a :class:`PagedState`) and :func:`forward_train` over whole sequences
+(counterpart of ``repro/models/lm.py``).
 
 Family wiring, as the reference's:
   dense / vlm   [attn + mlp] blocks; attention full, swa or local:global.
@@ -133,12 +133,12 @@ def _shared_app(cfg: ModelConfig, i: int) -> Optional[int]:
     return i // e if e and i % e == 0 else None
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator,
-            device="cuda") -> DenseLM:
-    """Random weights from ``generator`` (on ``device``), with the
-    reference's shapes and scales (``ninit``: f32 normal times a scale,
-    then the cast)."""
-    _check_family(cfg)
+def _initializers(cfg: ModelConfig, generator: torch.Generator, device):
+    """(ninit, norm, attention, mlp): draw a weight, a norm weight (None
+    for a non-parametric norm), an :class:`Attention` or an :class:`MLP`
+    from ``generator`` on ``device``, with the reference's shapes and
+    scales (``ninit``: f32 normal times a scale, then the cast); shared
+    with ``encdec.init_encdec``."""
     cdt, pdt = cfg.compute_dtype, cfg.param_torch_dtype
 
     def ninit(shape, scale, dtype=cdt):
@@ -155,8 +155,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     # wo's scale counts the live heads only, as the reference's
     so = 1.0 / math.sqrt(H * hd or 1) / math.sqrt(2.0 * cfg.n_layers)
     sd = 1.0 / math.sqrt(ff or 1) / math.sqrt(2.0 * cfg.n_layers)
-    norm = (lambda: torch.ones(d, dtype=pdt, device=device)) \
-        if cfg.parametric_norm else (lambda: None)
+
+    def norm():
+        return torch.ones(d, dtype=pdt, device=device) \
+            if cfg.parametric_norm else None
 
     def attention():
         # dead (padding) heads: zero columns of wq, wk, wv past the live
@@ -172,6 +174,16 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
     def mlp():
         return MLP(ninit((d, ff), s), ninit((d, ff), s), ninit((ff, d), sd))
 
+    return ninit, norm, attention, mlp
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator,
+            device="cuda") -> DenseLM:
+    """Random weights from ``generator`` (on ``device``), with the
+    reference's shapes and scales (:func:`_initializers`)."""
+    _check_family(cfg)
+    ninit, norm, attention, mlp = _initializers(cfg, generator, device)
+    d = cfg.d_model
     blocks = []
     for _ in range(cfg.n_layers):
         if _recurrent(cfg):
@@ -190,6 +202,21 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                    unembed, shared)
 
 
+def _loaders(cfg: ModelConfig, device, dtype: torch.dtype):
+    """(t, norm): a numpy array (or None) as a tensor on ``device`` in
+    ``dtype`` (``t(a, dt)`` in another), and a norm weight (or None) in
+    the parameter dtype; shared with ``encdec.params_from_numpy``."""
+    def t(a, dt=dtype):
+        if a is None:
+            return None
+        a = torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
+        return a.to(device=device, dtype=dt)
+
+    def norm(a):
+        return None if a is None else t(a, cfg.param_torch_dtype)
+    return t, norm
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda", dtype: Optional[torch.dtype] = None
                       ) -> DenseLM:
@@ -205,15 +232,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     ``A_log``, ``D``, ``dt_bias`` stay f32 (``ssm.MATMUL``, ``ssm.F32``)."""
     _check_family(cfg)
     dtype = dtype or cfg.compute_dtype
-
-    def t(a, dt=dtype):
-        if a is None:
-            return None
-        a = torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
-        return a.to(device=device, dtype=dt)
-
-    def norm(a):
-        return None if a is None else t(a, cfg.param_torch_dtype)
+    t, norm = _loaders(cfg, device, dtype)
 
     def block(b, at=lambda a: a):
         """One [attn + mlp/moe] block of tree ``b``, its arrays cut by
@@ -289,9 +308,10 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
                       *, kv=None, pos=None, paged_kv=None):
     """attention (with layer ``i``'s window, in the mode ``L.attention``
     picks from ``kv``/``paged_kv``) + mlp/moe.  An MoE block takes the
-    MLP's place; its aux loss is a training term, dropped here as the
-    reference's serving paths drop it.  Returns (y, the prompt's (k, v)
-    in prefill mode, else None)."""
+    MLP's place.  Returns (y, the block's aux loss (the MoE layer's f32
+    scalar, a Python 0.0 for an MLP block; a training term, which the
+    serving paths drop as the reference's do), the prompt's (k, v) in
+    prefill mode, else None)."""
     h = rmsnorm(x, blk.ln1, cfg.norm_eps)
     out = L.attention(blk.attn, h, be, cfg, window=_window_for_layer(cfg, i),
                       kv_cache=kv, pos=pos, paged_kv=paged_kv)
@@ -299,11 +319,12 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
     attn_out, kv_out = out if prefill else (out, None)
     x = x + attn_out
     h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+    aux = 0.0
     if blk.moe is not None:
-        y = L.moe(blk.moe, h2, be, cfg)[0]
+        y, aux = L.moe(blk.moe, h2, be, cfg)
     else:
         y = L.mlp(blk.mlp, h2, be)
-    return x + y, kv_out
+    return x + y, aux, kv_out
 
 
 def _apply_mamba_block(blk: MambaBlock, x, be: Policy, cfg: ModelConfig, *,
@@ -318,29 +339,31 @@ def _apply_mamba_block(blk: MambaBlock, x, be: Policy, cfg: ModelConfig, *,
 
 
 # --------------------------------------------------------------------------
-# Forward over whole sequences (scoring; the ssm and hybrid families).
+# Forward over whole sequences (scoring).
 # --------------------------------------------------------------------------
 
 def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
                   prefix_embeds=None):
     """tokens (B, S_text) -> (logits (B, S_total, Vp), aux loss (a f32
-    scalar, 0 for these families)).  Under every policy but the forced
-    library each mamba layer runs the SSD kernel once over the whole
-    sequence, and the hybrid's shared block the flash kernel.  The dense,
-    MoE and VLM families' forward belongs to the training slice, which is
-    not ported yet."""
-    if not _recurrent(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: forward_train of the {cfg.family} family comes "
-            "with the training slice, not ported yet")
+    scalar: the MoE layers' mean over the layers, 0 for the other
+    families)).  Every attention layer attends the whole sequence
+    causally with its own window (through the flash kernel under every
+    policy but the forced library), and every mamba layer runs the SSD
+    kernel once over it."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
-    for i, blk in enumerate(params.blocks):
-        if _shared_app(cfg, i) is not None:
-            x, _ = _apply_attn_block(params.shared, x, be, cfg, i)
-        x, _ = _apply_mamba_block(blk, x, be, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _recurrent(cfg):
+        for i, blk in enumerate(params.blocks):
+            if _shared_app(cfg, i) is not None:
+                x, _, _ = _apply_attn_block(params.shared, x, be, cfg, i)
+            x, _ = _apply_mamba_block(blk, x, be, cfg)
+    else:
+        for i, blk in enumerate(params.blocks):
+            x, a, _ = _apply_attn_block(blk, x, be, cfg, i)
+            aux = aux + a
+        aux = aux / cfg.n_layers
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return _unembed(params, cfg, x, be), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return _unembed(params, cfg, x, be), aux
 
 
 # --------------------------------------------------------------------------
@@ -441,7 +464,8 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
         for i, blk in enumerate(params.blocks):
             app = _shared_app(cfg, i)
             if app is not None:
-                x, (k, v) = _apply_attn_block(params.shared, x, be, cfg, i)
+                x, _, (k, v) = _apply_attn_block(params.shared, x, be,
+                                                 cfg, i)
                 cache.shared_k[app] = _ring_pad(k, W, cfg.compute_dtype)
                 cache.shared_v[app] = _ring_pad(v, W, cfg.compute_dtype)
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
@@ -451,7 +475,7 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
         x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
         return _unembed(params, cfg, x, be)[:, 0], cache
     for i, blk in enumerate(params.blocks):
-        x, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
+        x, _, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
         cache.attn_k[i] = _ring_pad(k, W, cfg.compute_dtype)
         cache.attn_v[i] = _ring_pad(v, W, cfg.compute_dtype)
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
@@ -468,16 +492,16 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
         if _recurrent(cfg):
             app = _shared_app(cfg, i)
             if app is not None:
-                x, _ = _apply_attn_block(
+                x, _, _ = _apply_attn_block(
                     params.shared, x, be, cfg, i,
                     kv=(cache.shared_k[app], cache.shared_v[app]),
                     pos=cache.pos)
             x, (cache.conv[i], cache.ssm[i]) = _apply_mamba_block(
                 blk, x, be, cfg, state=(cache.conv[i], cache.ssm[i]))
             continue
-        x, _ = _apply_attn_block(blk, x, be, cfg, i,
-                                 kv=(cache.attn_k[i], cache.attn_v[i]),
-                                 pos=cache.pos)
+        x, _, _ = _apply_attn_block(blk, x, be, cfg, i,
+                                    kv=(cache.attn_k[i], cache.attn_v[i]),
+                                    pos=cache.pos)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)[:, 0], dataclasses.replace(
         cache, pos=cache.pos + 1)
@@ -541,8 +565,8 @@ def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
         for i, blk in enumerate(params.blocks):
             app = _shared_app(cfg, i)
             if app is not None:
-                x, _ = _apply_attn_block(params.shared, x, be, cfg, i,
-                                         paged_kv=(
+                x, _, _ = _apply_attn_block(params.shared, x, be, cfg, i,
+                                            paged_kv=(
                     ps.shared_k[app], ps.shared_v[app], block_tables, qpos,
                     decode_from))
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
@@ -553,7 +577,7 @@ def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
         x = rmsnorm(x, params.final_norm, cfg.norm_eps)
         return _unembed(params, cfg, x, be)
     for i, blk in enumerate(params.blocks):
-        x, _ = _apply_attn_block(blk, x, be, cfg, i, paged_kv=(
+        x, _, _ = _apply_attn_block(blk, x, be, cfg, i, paged_kv=(
             ps.attn_k[i], ps.attn_v[i], block_tables, qpos, decode_from))
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)

@@ -28,7 +28,7 @@ from repro.models.common import XLA
 from repro.serve import PagedEngine as JPagedEngine, Request as JRequest
 from repro_torch import api, configs
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import lm, registry
+from repro_torch.models import encdec, lm, registry
 from repro_torch.serve import PagedEngine, Request
 
 KERNEL = api.Policy(backend="kernel")
@@ -181,9 +181,13 @@ def test_config_matches_reference(arch):
 
 
 def test_every_decoder_only_config_is_registered():
-    want = [a for a in jconfigs.ARCH_IDS
-            if jconfigs.get_config(a).family not in ("encdec", "audio")]
-    assert configs.ARCH_IDS == want
+    """Every decoder-only config of the reference, and since the enc-dec
+    slice the enc-dec one too: the reference's list as it is."""
+    decoder_only = [a for a in jconfigs.ARCH_IDS
+                    if jconfigs.get_config(a).family not in ("encdec",
+                                                             "audio")]
+    assert set(decoder_only) < set(configs.ARCH_IDS)
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
 
 
 # -- head padding --------------------------------------------------------------
@@ -279,15 +283,59 @@ def test_launcher_serves_each_new_arch_on_the_cpu(arch, capsys, monkeypatch):
 
 
 def test_launcher_refuses_enc_dec(monkeypatch):
-    """The enc-dec config is not registered, and ``registry.build``
-    refuses its family with a clear message (the reference's launcher
-    refuses it too)."""
+    """The launcher refuses the enc-dec config with the reference's
+    message (the reference's launcher refuses it too), while
+    ``registry.build`` gives the enc-dec and audio families their model,
+    one with no paged entries."""
     monkeypatch.setattr(sys, "argv", ["serve", "--arch",
                                       "seamless-m4t-large-v2", "--smoke"])
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit, match="decoder-only arch"):
         serve_mod.main()
     for family in ("encdec", "audio"):
-        cfg = dataclasses.replace(configs.get_smoke("olmo-1b"),
-                                  family=family)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            registry.build(cfg)
+        cfg = dataclasses.replace(
+            configs.get_smoke("seamless-m4t-large-v2"), family=family)
+        model = registry.build(cfg)
+        assert model.paged_decode is None
+        assert isinstance(model.init(torch.Generator().manual_seed(0),
+                                     "cpu"), encdec.EncDec)
+
+
+# -- forward_train: the attention families -------------------------------------
+
+#: forward_train parity on top of :data:`DENSE`: moonshot-smoke (the MoE
+#: layer's aux loss)
+FORWARD = DENSE + ["moonshot-v1-16b-a3b"]
+
+
+def forward_both(arch, S=21, prefix=None):
+    """forward_train of 2 x S tokens (after ``prefix`` (B, P, d), numpy,
+    when given) on both packages: the port under the forced kernel (flash
+    on its plain version, every layer with its own window), the reference
+    under XLA.  Returns ((port logits, aux), (JAX logits, aux))."""
+    cfg, _jcfg, jmodel, jparams, tparams = jax_and_port(arch)
+    toks = np.random.RandomState(5).randint(0, cfg.vocab, (2, S))
+    batch = {"tokens": jnp.asarray(toks, jnp.int32)}
+    if prefix is not None:
+        batch["prefix_embeds"] = jnp.asarray(prefix)
+    want = jmodel.forward_train(jparams, batch, XLA)
+    got = registry.build(cfg).forward_train(
+        tparams, torch.from_numpy(toks), KERNEL,
+        None if prefix is None else torch.from_numpy(prefix))
+    return got, want
+
+
+@pytest.mark.parametrize("arch", FORWARD)
+def test_forward_train_matches_jax(arch):
+    """21 tokens: past gemma3-smoke's window of 16 on its local layers
+    (each layer's window, as the reference's ``lax.cond`` picks it).  The
+    aux loss is the MoE layers' mean (moonshot, mixtral; the routers'
+    probabilities and counts in f32), 0 for the dense configs."""
+    (got, aux), (want, jaux) = forward_both(arch)
+    cfg = jax_and_port(arch)[0]
+    assert tuple(got.shape) == (2, 21, cfg.vocab_padded)
+    check([(got, _np(want))])
+    if cfg.family == "moe":
+        assert float(jaux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    else:
+        assert float(aux) == float(jaux) == 0.0

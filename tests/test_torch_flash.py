@@ -95,6 +95,28 @@ def test_flash_bf16_matches_jax_within_one_step(window):
     np.testing.assert_allclose(got, want, rtol=BF16_STEP, atol=1e-6)
 
 
+#: (Sq, Sk) of non-causal attention with Sq != Sk: cross attention, a
+#: decoder's queries against an encoder's keys (one query at decode, a
+#: prompt of 5, and more queries than keys)
+CROSS = [(1, 37), (5, 130), (130, 5)]
+
+
+@pytest.mark.parametrize("D", [16, 20])
+@pytest.mark.parametrize("Sq,Sk", CROSS)
+def test_flash_non_causal_sq_ne_sk_matches_jax(Sq, Sk, D):
+    """GQA 8 over 2, D 16 and D 20 (zero-padded to 32), f32, against the
+    reference's Pallas kernel in interpret mode at its sweep tolerance;
+    bq and bkv as the reference's ``_full_attn`` picks them."""
+    q, k, v = _inputs(Sq + Sk + D, 2, 8, 2, Sq, Sk, D)
+    want = _jax_flash(q, k, v, min(128, Sq), 128, causal=False)
+    got = _port(fa.flash_attention, q, k, v, causal=False)
+    assert got.shape == want.shape == (2, 8, Sq, D)
+    np.testing.assert_allclose(got, want, rtol=3e-5, atol=3e-5)
+    oracle = np.asarray(jref.ref_mha(*map(jnp.asarray, (q, k, v)),
+                                     causal=False))
+    np.testing.assert_allclose(got, oracle, rtol=3e-5, atol=3e-5)
+
+
 def test_flash_takes_strided_views():
     """The heads of ``layers._split_heads`` are transposed views; the
     wrapper takes them as they are, with the same result."""
@@ -247,6 +269,27 @@ def test_tc_kernel_arithmetic_within_one_bf16_step(D):
         want = fa.flash_attention_plain(q, k, v, **kw)
         assert torch.isfinite(got).all()
         assert _one_step_misses(got, want) == 0, (shape, kw)
+
+
+#: query rows per block of the tensor-core kernel (64 a warpgroup)
+TC_BQ = 128
+
+
+@pytest.mark.parametrize("Sk", [37, 1000])
+def test_tc_kernel_arithmetic_at_one_query(Sk):
+    """Cross attention at decode: one query against Sk keys, non-causal.
+    The kernel's block holds 128 query rows; the 127 past Sq are
+    zero-filled, attend every key as the real row does, and are never
+    stored.  Emulated over the whole block: every row finite, the one
+    real row within one bf16 step of the plain version (Sk 1000 ends on
+    a partial KV tile of 40 keys)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(Sk, 2, 8, 2, 1, Sk, 64))
+    block = torch.nn.functional.pad(q, (0, 0, 0, TC_BQ - 1))
+    got = _tc_emulation(block, k, v, causal=False)
+    assert torch.isfinite(got).all()
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    assert _one_step_misses(got[:, :, :1], want) == 0
 
 
 def test_two_term_p_split_misses_the_tolerance():

@@ -25,7 +25,8 @@ from repro_torch.kernels import flash_attention, ssd
 from repro_torch.models import frontends, lm, registry
 
 from test_torch_families import (HYBRID, KERNEL, check, engine_both,
-                                 jax_and_port, paged_both, wave_both)
+                                 forward_both, jax_and_port, paged_both,
+                                 wave_both)
 
 ZAMBA, VLM = HYBRID
 
@@ -162,12 +163,16 @@ def test_zamba2_forward_train_routes_ssd_and_flash(monkeypatch, backend,
     assert calls == {"ssd": scans, "flash": flash}
 
 
-def test_forward_train_still_refuses_the_attention_families():
-    cfg = configs.get_smoke(VLM)
-    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        lm.forward_train(params, cfg, KERNEL,
-                         torch.zeros((1, 4), dtype=torch.long))
+def test_internvl2_forward_train_matches_jax():
+    """The VLM's forward_train: the frontend's embeddings as
+    ``prefix_embeds`` before 2 x 21 tokens, against the reference's; the
+    logits cover prefix and text."""
+    cfg = jax_and_port(VLM)[0]
+    pre = _prefix(cfg, 2)
+    (got, aux), (want, jaux) = forward_both(VLM, prefix=pre)
+    assert tuple(got.shape) == (2, pre.shape[1] + 21, cfg.vocab_padded)
+    assert float(aux) == float(jaux) == 0.0
+    check([(got, np.asarray(want, np.float32))])
 
 
 # -- the VLM: its frontend's output as prefix_embeds ---------------------------

@@ -149,12 +149,27 @@ def test_forward_train_policies_agree_and_route_the_ssd(smoke, monkeypatch):
     assert _rel(lk, ll) <= 1e-5
 
 
-def test_forward_train_refuses_other_families():
-    cfg = configs.get_smoke("olmo-1b")
-    params = lm.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        lm.forward_train(params, cfg, KERNEL, torch.zeros((1, 4),
-                                                          dtype=torch.long))
+@pytest.mark.parametrize("policy", ["library", "kernel"])
+def test_forward_train_of_a_dense_family_matches_reference(policy):
+    """The same entry serves the attention families: olmo-smoke (f32,
+    2 x 37 tokens) against the reference under both policy pairs, flash
+    (on the CPU its plain version) against the Pallas kernel in interpret
+    mode under ``kernel``; its aux loss is 0."""
+    jcfg = dataclasses.replace(jconfigs.get_smoke("olmo-1b"), dtype="float32")
+    jmodel = jregistry.build(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(configs.get_smoke("olmo-1b"), dtype="float32")
+    tparams = lm.params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                   device="cpu")
+    toks = np.random.RandomState(1).randint(0, cfg.vocab, (2, 37))
+    want, jaux = jmodel.forward_train(
+        jparams, {"tokens": jnp.asarray(toks, jnp.int32)},
+        XLA if policy == "library" else PALLAS_INTERPRET)
+    got, aux = registry.build(cfg).forward_train(
+        tparams, torch.from_numpy(toks), api.Policy(backend=policy))
+    assert got.shape == (2, 37, cfg.vocab_padded)
+    assert float(aux) == float(jaux) == 0.0
+    assert _rel(got, np.asarray(want, np.float32)) <= FWD_TOL["float32"]
 
 
 def _prompts(seed, n, lo=2, hi=20):
