@@ -210,7 +210,46 @@ fails the run:
             added to ``slice_shapes``;
 36. encdec step — one seamless decode step at B 4 under ``auto``: loop
             time and torch.profiler device time (run after phase 17, the
-            last other device-time phase, and before phase 16).
+            last other device-time phase, and before phase 16);
+37. train — olmo-1b at full width and depth (f32 master, bf16 compute)
+            through launch.train.run for 8 steps of 4 x 64 tokens under
+            ``auto`` with the non-GEMM kernels pinned to the library
+            (Policy.kernels): IAAT launches in every step (q/k/v/o at
+            M 256; the backward is the adjoint GEMMs), no flash, grouped
+            or SSD launch, every loss, grad norm and lr finite, the lr
+            the schedule's; then one step from one seeded state and batch
+            under ``auto``, the forced kernel and the library (times and
+            IAAT launches of each), kernel against library within
+            TRAIN_TOL in bf16 and with the weights widened to f32 (run
+            after phase 32, once the served weights are freed);
+38. train restart — olmo-1b at full width and 2 of its 16 layers: twice
+            uninterrupted, then with asynchronous checkpoints (the
+            reference's format, into a temporary directory under build/)
+            and a fault at step 5, restored from step 4: the final state
+            (params, m, v), leaf for leaf, and the losses no further from
+            the uninterrupted run's than the two uninterrupted runs are
+            from each other (0 on the H100: bit for bit);
+39. ssm train — mamba2-780m at full width and depth, 3 steps of 2 x 64
+            tokens under ``auto``: IAAT launches in every step, all of
+            them at in_proj (128 x 1536 x 6448, 2 regions) and out_proj
+            (128 x 3072 x 1536), counted by shape; the SSD scan through
+            ref.ref_ssd under autograd (no SSD launch);
+40. train kernels — the IAAT kernel at the train phase's q/k/v/o shape
+            (256 x 2048 x 2048) and at mamba2's in_proj and out_proj
+            train shapes (bf16), each held against its plain version:
+            kernel, plain and library times and the bound, added to
+            ``slice_shapes`` with the train phases' launches at that
+            shape (run after phase 35);
+41. train profile — one warm olmo-1b train step under ``auto``: wall
+            time, the same step cut at its three parts (the cast, forward
+            and backward, AdamW; each to a synchronize, on the one
+            state), and a torch.profiler trace's device time by group
+            (the IAAT kernel, the library's GEMMs, the rest) and the
+            device's idle share (run after phase 36, the last other
+            trace, and before phase 16).
+Phase 37 also prints the share of outputs of the IAAT kernel equal to
+the bit to torch.matmul's at the train step's GEMM shapes (a reading,
+not a check).
 Phase 10 also holds head dims 20 and 112 (zero-padded to 32 and 128)
 and non-causal attention with Sq != Sk (1, 4, 33 and 1000 queries
 against 1000 keys: cross attention and the encoder) against the plain
@@ -720,6 +759,9 @@ def _main_operands(torch, g, M, K, N, tied, copies=1):
 #: IAAT launches made inside ``lm._unembed`` (the vocabulary head), counted
 #: by the wrapper :func:`_count_vocab_head` installs
 _HEAD = {"iaat": 0}
+#: IAAT launches by the "MxKxN" of the ``api.matmul`` call that made
+#: them (``_count_by_shape``)
+_BY_SHAPE = {}
 
 
 def _count_vocab_head():
@@ -737,12 +779,32 @@ def _count_vocab_head():
     lm._unembed = counted
 
 
+def _count_by_shape():
+    """Wraps ``api.matmul`` (every model projection goes through it) so
+    that its IAAT launches are also counted by the call's (M, K, N)
+    (``_BY_SHAPE``, "MxKxN" -> launches; zeroed by ``_reset_counts``)."""
+    from repro_torch import api
+    from repro_torch.kernels import iaat_gemm
+    matmul = api.matmul
+
+    def counted(x, w, **kw):
+        n0 = iaat_gemm.launch_count("iaat_gemm")
+        out = matmul(x, w, **kw)
+        n = iaat_gemm.launch_count("iaat_gemm") - n0
+        if n:
+            key = f"{x.numel() // x.shape[-1]}x{w.shape[0]}x{w.shape[1]}"
+            _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + n
+        return out
+    api.matmul = counted
+
+
 def _reset_counts():
     """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
     from repro_torch.kernels import (flash_attention, grouped_gemm,
                                      iaat_gemm, ssd)
     _HEAD["iaat"] = 0
+    _BY_SHAPE.clear()
     obs.ROUTES.reset()
     iaat_gemm.reset_launch_count()
     grouped_gemm.reset_launch_count()
@@ -3874,6 +3936,509 @@ def phase_encdec_kernels(torch, launches):
     return rows
 
 
+# --------------------------------------------------------------------------
+# Training (train/ and launch/train.py): the IAAT kernel's forward inside
+# autograd, its backward the adjoint GEMMs (torch.matmul); flash, grouped
+# and SSD pinned to the library (Policy.kernels), as the reference pins
+# them to XLA.
+# --------------------------------------------------------------------------
+
+#: the train phase: olmo-1b at full size, batch x seq 4 x 64 (M = 256:
+#: cbrt(256 * 2048 * 2048) = 1024 <= HOPPER_CROSSOVER, so api.route sends
+#: q/k/v/o to the IAAT kernel under auto, gate/up/down (1625) and the
+#: vocabulary head to the library)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 64, 8
+#: the restart phase's depth (of olmo-1b's 16 layers: 0.24 B parameters,
+#: 2.85 GB a checkpoint of f32 master, m and v), steps, checkpoint
+#: interval and the step its fault is injected at
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAULT = 2, 6, 2, 5
+#: mamba2-780m's train phase: M = 128 sends in_proj (cbrt(128 * 1536 *
+#: 6448) = 1079) and out_proj to the IAAT kernel under auto
+SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = 2, 64, 3
+#: one step from the same state and batch under the forced kernel against
+#: the library, relative: loss, grad norm, the gradients (as the first
+#: moment after one step, (1 - b1) times the clipped gradient, in norm:
+#: ||m_kernel - m_library|| / ||m_library||) and the parameters' update
+#: (||p_kernel - p_library|| / ||p_library - p0||).  f32: both take f32
+#: products summed in other orders (the CPU parity tests measure 2.4e-7 /
+#: 2.4e-7 / - / 3e-5 against JAX).  bf16: the library's bf16 GEMMs
+#: (cuBLAS, its reduced-precision reductions allowed) and the kernel's f32
+#: sums round to bf16 at other places.  Adam's first step moves every
+#: element by lr times the sign of its gradient whatever its size, so the
+#: update's difference is 2 sqrt(the share of elements whose gradient
+#: sign differs): 0.3 allows 2.25 % of them, the near-zero gradients.
+TRAIN_TOL = {"float32": (1e-5, 1e-5, 1e-4, 1e-4),
+             "bfloat16": (2e-3, 3e-3, 5e-2, 0.3)}
+
+
+def _train_args(*argv):
+    from repro_torch.launch import train as train_mod
+    return train_mod.build_args(["--log-every", "100", "--device", "cuda",
+                                 *argv])
+
+
+@contextlib.contextmanager
+def _replaced(obj, name, value):
+    """``obj.name`` is ``value`` for the body."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def _train_run(torch, args, cfg=None):
+    """``launch.train.run`` with the kernels' launches counted per step
+    (each step counted from 0, read where the launcher records the step:
+    ``train.loop.record_step``); ``cfg`` in place of the config of
+    ``--arch`` (a depth cut).  Returns (its result, the per-step
+    counts)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as train_mod
+    from repro_torch.train import loop as train_loop
+    per_step = []
+    record = train_loop.record_step
+
+    def counted(step, m, dt):
+        record(step, m, dt)
+        per_step.append(dict(_counts(), step=step,
+                             iaat_by_shape=dict(_BY_SHAPE)))
+        _reset_counts()
+    get = configs.get_config if cfg is None else (lambda arch: cfg)
+    _reset_counts()
+    with _replaced(train_loop, "record_step", counted), \
+            _replaced(configs, "get_config", get):
+        out = train_mod.run(args)
+    return out, per_step
+
+
+def _check_history(out, per_step, args, what, want_iaat=True):
+    """Every loss, grad norm and lr finite, the lr the schedule's, IAAT
+    launches > 0 in every step (``want_iaat``), no flash, grouped or SSD
+    launch (pinned to the library)."""
+    from repro_torch.train import optimizer as opt
+    c = opt.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
+                      decay_steps=max(args.steps, 10))
+    for h, n in zip(out["history"], per_step):
+        ok = all(math.isfinite(h[k]) for k in ("loss", "grad_norm", "lr"))
+        if not ok or h["lr"] != opt.schedule(h["step"], c):
+            raise AssertionError(f"{what} step {h['step']}: {h}")
+        if (want_iaat and n["iaat_gemm"] < 1) or n["flash_attention"] or \
+                n["batched_gemm"] or n["ragged_gemm"] or n["ssd_scan"]:
+            raise AssertionError(f"{what} step {h['step']}: launches {n}")
+
+
+def _clone_state(st):
+    from repro_torch.models.common import map_params
+
+    def copy(m):
+        return map_params(m, lambda _n, p: p.detach().clone())
+    return {"params": copy(st["params"]),
+            "opt": {k: copy(v) for k, v in st["opt"].items()},
+            "step": st["step"]}
+
+
+def _rel_norm(torch, got, want, start=None):
+    """||got - want|| / ||want - start|| over every parameter of three
+    modules (f64 sums; no ``start``: zeros)."""
+    num = den = 0.0
+    for (_, g), (_, w), s in zip(got.named_parameters(),
+                                 want.named_parameters(),
+                                 start.parameters() if start is not None
+                                 else itertools.repeat(0.0)):
+        num += float(((g.double() - w.double()) ** 2).sum())
+        den += float(((w.double() - s) ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _step_parts(torch, model, tc, pol, st, batch):
+    """One train step (``make_train_step``'s, ``accum_steps`` 1) on
+    ``st``, which it advances, cut at its three parts, each timed on the
+    host clock to a synchronize: the working copy's cast, forward and
+    backward (the loss and ``autograd.grad``), AdamW; seconds of each."""
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as opt
+    loss_fn = TL.make_loss_fn(model, tc, pol)
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+
+    def mark():
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+    pc = TL.cast_params_for_compute(st["params"], model.cfg)
+    mark()
+    names, leaves = zip(*pc.named_parameters())
+    loss, _ = loss_fn(pc, batch)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    mark()
+    st["params"], st["opt"], _ = opt.adamw_update(
+        st["params"], grads, st["opt"], st["step"], tc.opt)
+    st["step"] += 1
+    mark()
+    return {k: b - a for k, a, b in zip(("cast", "forward_backward",
+                                         "adamw"), t, t[1:])}
+
+
+def _one_step_pair(torch, cfg, dtype):
+    """One train step of olmo-1b (``cfg``) in ``dtype`` from one seeded
+    state and batch under ``auto``, the forced kernel and the library
+    (each after an uncounted warm-up step on a copy): step seconds, IAAT
+    launches, and kernel against library."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.models import registry
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import loop as TL
+    from repro_torch.train import optimizer as opt
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = registry.build(cfg)
+    st0 = TL.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = data_mod.to_device(data_mod.SyntheticTokens(
+        cfg.vocab, TRAIN_S, TRAIN_B, seed=0).batch(0), "cuda")
+    tc = TL.TrainConfig(opt=opt.OptConfig(peak_lr=3e-4, warmup_steps=20,
+                                          decay_steps=TRAIN_STEPS))
+    res = {}
+    for name, pol in (("auto", api.Policy(backend="auto")),
+                      ("kernel", api.Policy(backend="kernel")),
+                      ("library", api.named_policy("library"))):
+        step = TL.make_train_step(model, tc, pol.replace(kernels="library"))
+        step(_clone_state(st0), batch)                      # warm-up
+        st = _clone_state(st0)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        m = {k: float(v) for k, v in m.items()}
+        dt = time.perf_counter() - t0
+        n = _counts()
+        res[name] = {"seconds": dt, "iaat_launches": n["iaat_gemm"],
+                     "iaat_split": n["iaat_split"], **m}
+        if name != "auto":
+            res[name]["state"] = st
+        del st
+        _free(torch)
+    k, lib = res["kernel"], res["library"]
+    loss_rel = abs(k["loss"] - lib["loss"]) / abs(lib["loss"])
+    gn_rel = abs(k["grad_norm"] - lib["grad_norm"]) / lib["grad_norm"]
+    g_rel = _rel_norm(torch, k["state"]["opt"]["m"],
+                      lib["state"]["opt"]["m"])
+    upd = _rel_norm(torch, k["state"]["params"], lib["state"]["params"],
+                    st0["params"])
+    tl, tg, tgr, tu = TRAIN_TOL[dtype]
+    out = {n: {key: v for key, v in r.items() if key != "state"}
+           for n, r in res.items()}
+    out.update(loss_rel=loss_rel, grad_norm_rel=gn_rel, grad_rel=g_rel,
+               update_rel=upd)
+    log(f"train step {cfg.name} {dtype} B{TRAIN_B} x S{TRAIN_S}: "
+        + "; ".join(f"{n} {r['seconds'] * 1e3:.2f} ms, loss "
+                    f"{r['loss']:.6f}, grad norm "
+                    f"{r['grad_norm']:.6f}, IAAT {r['iaat_launches']} "
+                    f"launches ({r['iaat_split']} split)"
+                    for n, r in out.items() if isinstance(r, dict))
+        + f"; kernel vs library: loss {loss_rel:.3g} (tol {tl}), grad norm "
+        f"{gn_rel:.3g} (tol {tg}), gradients {g_rel:.3g} (tol {tgr}), "
+        f"update {upd:.3g} (tol {tu})")
+    if not (loss_rel <= tl and gn_rel <= tg and g_rel <= tgr
+            and upd <= tu) or \
+            out["kernel"]["iaat_launches"] < 1 or \
+            out["auto"]["iaat_launches"] < 1 or \
+            out["library"]["iaat_launches"]:
+        raise AssertionError(f"train step {dtype}: {out}")
+    return out
+
+
+def _train_gemm_equality(torch, cfg):
+    """The IAAT kernel (forced) against ``torch.matmul`` at the train
+    step's GEMM shapes (M = 256: q/k/v/o, gate/up, down, the tied
+    vocabulary head), f32 and bf16: the share of output elements equal to
+    the bit and the largest difference."""
+    from repro_torch import api
+    kern = api.Policy(backend="kernel")
+    g = torch.Generator(device="cuda").manual_seed(47)
+    M, d, ff = TRAIN_B * TRAIN_S, cfg.d_model, cfg.d_ff
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for K, N in ((d, d), (d, ff), (ff, d), (d, cfg.vocab_padded)):
+            x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+            w = (torch.randn(K, N, generator=g, device="cuda")
+                 / math.sqrt(K)).to(dt)
+            a, b = api.matmul(x, w, policy=kern), torch.matmul(x, w)
+            out[f"{str(dt)[6:]} {M}x{K}x{N}"] = (
+                float((a == b).float().mean()),
+                float((a.double() - b.double()).abs().max()))
+    log("train GEMMs, IAAT kernel against torch.matmul (share equal to the "
+        "bit, max abs diff): " + ", ".join(f"{k} {v[0]:.6f} {v[1]:.3g}"
+                                           for k, v in out.items()))
+    return out
+
+
+def phase_train(torch, cfg):
+    """olmo-1b at full width and depth through ``launch.train.run`` for
+    TRAIN_STEPS steps under ``auto`` (bf16 compute, f32 master): IAAT
+    launches in every step, no other kernel's, finite metrics, the
+    schedule's lr; then one step under the forced kernel against the
+    library, in bf16 and with the weights widened to f32."""
+    from repro_torch import api
+    prev = api.current_policy()
+    args = _train_args("--arch", "olmo-1b", "--steps", str(TRAIN_STEPS),
+                       "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                       "--backend", "auto")
+    out, per_step = _train_run(torch, args)
+    _check_history(out, per_step, args, "train")
+    secs = [h["seconds"] for h in out["history"]]
+    iaat = [n["iaat_gemm"] for n in per_step]
+    log(f"train {cfg.name} auto B{TRAIN_B} x S{TRAIN_S}: losses "
+        f"{[round(h['loss'], 5) for h in out['history']]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in out['history']]}; step s "
+        f"{[round(s, 4) for s in secs]}; IAAT launches a step {iaat} "
+        f"({[n['iaat_split'] for n in per_step]} split, "
+        f"{[n['iaat_ring'] for n in per_step]} ring)")
+    pair = {dt: _one_step_pair(torch, cfg, dt)
+            for dt in ("bfloat16", "float32")}
+    api.install(prev)
+    return {"history": out["history"], "iaat_launches": iaat,
+            "launches": sum(iaat), "step_s_median": sorted(secs[1:])[
+                len(secs[1:]) // 2], "one_step": pair,
+            "gemm_equality": _train_gemm_equality(torch, cfg)}
+
+
+def _final_leaves(d):
+    """{leaf file: array} of the last checkpoint in ``d`` (the final
+    state ``launch.train.run`` saves at ``--steps``)."""
+    import numpy as np
+    from repro_torch.train import checkpoint as ckpt_mod
+    ck = ckpt_mod.Checkpointer(d)
+    step = pathlib.Path(d) / f"step_{ck.latest_step():08d}"
+    return {f.name: np.load(f) for f in sorted(step.glob("*.npy"))}
+
+
+def _leaf_diff(got, want):
+    """The largest |got - want| over every element of every leaf (inf
+    where the leaf names or shapes differ)."""
+    import numpy as np
+    if set(got) != set(want):
+        return math.inf
+    out = 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            return math.inf
+        if w.size:
+            out = max(out, float(np.abs(g.astype(np.float64)
+                                        - w.astype(np.float64)).max()))
+    return out
+
+
+def phase_train_restart(torch, cfg):
+    """olmo-1b at full width and RESTART_LAYERS of its 16 layers through
+    ``launch.train.run``: twice uninterrupted (the card's run-to-run
+    spread: the losses and the final states, params, m and v, leaf for
+    leaf), then with asynchronous checkpoints every RESTART_EVERY steps
+    and a fault at RESTART_FAULT, restored from the last checkpoint.  The
+    restarted run's losses and final state may differ from the first
+    uninterrupted run's by no more than the two uninterrupted runs differ
+    (on the H100 they are equal to the bit, so the restart must be too).
+    Every run saves its final state; the checkpoints go to temporary
+    directories under build/, removed afterwards."""
+    import dataclasses
+    from repro_torch import api
+    prev = api.current_policy()
+    cut = dataclasses.replace(cfg, n_layers=RESTART_LAYERS)
+    base = ("--arch", "olmo-1b", "--steps", str(RESTART_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--backend", "auto")
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs, finals = [], []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            runs.append(_train_run(torch, _train_args(*base, "--ckpt-dir", d),
+                                   cut))
+            finals.append(_final_leaves(d))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        args = _train_args(*base, "--ckpt-dir", d, "--ckpt-every",
+                           str(RESTART_EVERY), "--inject-fault-at",
+                           str(RESTART_FAULT))
+        out, per_step = _train_run(torch, args, cut)
+        t_fault = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         pathlib.Path(d).rglob("*.npy"))
+        restarted = _final_leaves(d)
+    for o, n in runs + [(out, per_step)]:
+        _check_history(o, n, args, "train restart")
+    a, b = runs[0][0], runs[1][0]
+
+    def loss_diff(x):
+        # the last run of each step (a restart runs steps again)
+        got = {h["step"]: h["loss"] for h in x["history"]}
+        return max(abs(got[h["step"]] - h["loss"]) / abs(h["loss"])
+                   for h in a["history"])
+    spread, rel = loss_diff(b), loss_diff(out)
+    state_spread = _leaf_diff(finals[1], finals[0])
+    state_diff = _leaf_diff(restarted, finals[0])
+    steps = [h["step"] for h in out["history"]]
+    want = list(range(RESTART_FAULT)) + list(range(
+        RESTART_FAULT - RESTART_FAULT % RESTART_EVERY, RESTART_STEPS))
+    log(f"train restart {cut.name} ({RESTART_LAYERS} layers): steps run "
+        f"{steps}; final loss {out['loss']:.7f} against {a['loss']:.7f} "
+        f"uninterrupted; losses apart by {rel:.3g} at most (rel; two "
+        f"uninterrupted runs {spread:.3g}), final state (params, m, v; "
+        f"{len(restarted)} leaves) by {state_diff:.3g} at most (two "
+        f"uninterrupted runs {state_spread:.3g}); fault run {t_fault:.1f} "
+        f"s, {ckpt_bytes / 1e9:.2f} GB of checkpoints kept")
+    if steps != want or out["final_step"] != RESTART_STEPS or \
+            not rel <= spread or not state_diff <= state_spread:
+        raise AssertionError(f"train restart: steps {steps} (want {want}),"
+                             f" loss {rel} (spread {spread}), state "
+                             f"{state_diff} (spread {state_spread})")
+    api.install(prev)
+    return {"layers": RESTART_LAYERS, "steps": steps, "loss": out["loss"],
+            "uninterrupted_loss": a["loss"], "rel": rel, "spread": spread,
+            "state_diff": state_diff, "state_spread": state_spread,
+            "fault_run_s": t_fault, "ckpt_bytes_kept": ckpt_bytes,
+            "history": out["history"]}
+
+
+def ssm_train_shapes(scfg):
+    """mamba2's two projections in the ssm train phase, (M, K, N): in_proj
+    and out_proj."""
+    s, M = scfg.ssm, SSM_TRAIN_B * SSM_TRAIN_S
+    return {"in_proj": (M, scfg.d_model, 2 * scfg.d_inner + 2 * s.d_state
+                        + scfg.ssm_heads),
+            "out_proj": (M, scfg.d_inner, scfg.d_model)}
+
+
+def phase_ssm_train(torch, scfg):
+    """mamba2-780m at full width and depth through ``launch.train.run``
+    for SSM_TRAIN_STEPS steps under ``auto``: IAAT launches in every step,
+    at in_proj and out_proj in every step and nowhere else (counted by
+    shape, ``_count_by_shape``), no SSD launch (the scan runs
+    ``ref.ref_ssd`` under autograd).  Returns the launches by projection
+    for phase_train_kernels, which holds the kernel at those shapes."""
+    from repro_torch import api
+    prev = api.current_policy()
+    args = _train_args("--arch", SSM_ARCH, "--steps", str(SSM_TRAIN_STEPS),
+                       "--batch", str(SSM_TRAIN_B), "--seq",
+                       str(SSM_TRAIN_S), "--backend", "auto")
+    out, per_step = _train_run(torch, args)
+    _check_history(out, per_step, args, "ssm train")
+    iaat = [n["iaat_gemm"] for n in per_step]
+    shapes = {"x".join(map(str, mkn)): name
+              for name, mkn in ssm_train_shapes(scfg).items()}
+    by_proj = dict.fromkeys(shapes.values(), 0)
+    for n in per_step:
+        got = n["iaat_by_shape"]
+        if set(got) != set(shapes) or sum(got.values()) != n["iaat_gemm"]:
+            raise AssertionError(f"ssm train step {n['step']}: IAAT "
+                                 f"launches by shape {got}, want each of "
+                                 f"{sorted(shapes)} and no other")
+        for k, v in got.items():
+            by_proj[shapes[k]] += v
+    log(f"ssm train {scfg.name} auto B{SSM_TRAIN_B} x S{SSM_TRAIN_S}: "
+        f"losses {[round(h['loss'], 5) for h in out['history']]}, step s "
+        f"{[round(h['seconds'], 4) for h in out['history']]}, IAAT "
+        f"launches a step {iaat} (over the run: " + ", ".join(
+            f"{p} {by_proj[p]}" for p in by_proj) + "), SSD launches 0")
+    api.install(prev)
+    return {"history": out["history"], "iaat_launches": iaat,
+            "iaat_by_proj": by_proj}
+
+
+def phase_train_profile(torch, cfg):
+    """One olmo-1b train step under ``auto`` (bf16, the train phase's
+    batch), warm: its wall time (the median of 3, to a synchronize), the
+    median of 3 more cut at their parts (``_step_parts``, on the same
+    one state: their sum is a step's time with two more synchronizes)
+    and, from a torch.profiler trace of one more, its device kernels'
+    time by group (the IAAT kernel, the library's GEMMs, the rest) and
+    count; the device's idle share is 1 - device / wall.  Run after every
+    other traced phase: a trace of this many kernels can leave later
+    traces of the process empty."""
+    from repro_torch import api
+    from repro_torch.models import registry
+    from repro_torch.train import data as data_mod
+    from repro_torch.train import loop as TL
+    from torch.profiler import ProfilerActivity, profile
+    model = registry.build(cfg)
+    st = TL.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = data_mod.to_device(data_mod.SyntheticTokens(
+        cfg.vocab, TRAIN_S, TRAIN_B, seed=0).batch(0), "cuda")
+    tc = TL.TrainConfig()
+    pol = api.Policy(backend="auto", kernels="library")
+    step = TL.make_train_step(model, tc, pol)
+    walls = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[1]
+    cuts = [_step_parts(torch, model, tc, pol, st, batch) for _ in range(3)]
+    parts = {k: sorted(c[k] for c in cuts)[1] for k in cuts[0]}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, m = step(st, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    groups = {"iaat_gemm": 0.0, "library_gemm": 0.0, "other": 0.0}
+    n = 0
+    top = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) / 1e3
+        if t <= 0:
+            continue
+        n += e.count
+        key = e.key.lower()
+        grp = "iaat_gemm" if "iaat_gemm" in key else "library_gemm" if any(
+            w in key for w in ("gemm", "xmma", "cutlass")) else "other"
+        groups[grp] += t
+        top.append((t, e.count, e.key[:70]))
+    dev = sum(groups.values())
+    if not n or dev <= 0:
+        raise AssertionError("train profile: the trace holds no device "
+                             "kernel")
+    top = sorted(top, reverse=True)[:8]
+    log(f"train profile {cfg.name} auto B{TRAIN_B} x S{TRAIN_S}: wall "
+        f"{wall * 1e3:.2f} ms (median of 3); parts (median of 3): "
+        + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in parts.items())
+        + f", sum {sum(parts.values()) * 1e3:.2f} ms; device {dev:.2f} ms "
+        f"over {n} "
+        f"kernels (idle {1 - dev / (wall * 1e3):.3f}): " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in groups.items()) + "; top: "
+        + "; ".join(f"{k} {t:.2f} ms x{c}" for t, c, k in top))
+    del st
+    _free(torch)
+    return {"wall_ms": wall * 1e3, "parts_ms": {k: v * 1e3 for k, v in
+                                                parts.items()},
+            "device_ms": dev, "kernels": n,
+            "idle_share": 1 - dev / (wall * 1e3), "groups_ms": groups,
+            "top": top}
+
+
+def phase_train_kernels(torch, cfg, launches, scfg, ssm_launches):
+    """The IAAT kernel at the train phase's q/k/v/o shape (M = B x S =
+    256, d x d) and at the ssm train phase's in_proj and out_proj (M 128),
+    bf16, each held against its plain version and timed against it, the
+    library and the bound, for ``slice_shapes``; ``launches`` the train
+    phase's, ``ssm_launches`` the ssm train phase's by projection."""
+    row = _iaat_row(torch, TRAIN_B * TRAIN_S, cfg.d_model, cfg.d_model,
+                    False, "olmo-1b train q/k/v/o")
+    row["main_path_launches"] = launches
+    rows = [row]
+    for name, (M, K, N) in ssm_train_shapes(scfg).items():
+        r = _iaat_row(torch, M, K, N, False, f"{scfg.name} train {name}")
+        r["main_path_launches"] = ssm_launches[name]
+        rows.append(r)
+    return {"iaat_gemm": rows}
+
+
 def _mixtral_cfg():
     import dataclasses
     from repro_torch import configs
@@ -3895,6 +4460,7 @@ def main():
     sys.path.insert(0, str(src))
     from repro_torch import configs
     _count_vocab_head()
+    _count_by_shape()
     cfg = configs.get_config("olmo-1b")
     mcfg = configs.get_config(MOE_ARCH)
     scfg = configs.get_config(SSM_ARCH)
@@ -3944,6 +4510,12 @@ def main():
                                   params)
         del params
         torch.cuda.empty_cache()
+        report["train"] = timed("train", phase_train, torch, cfg)
+        report["train_restart"] = timed("train restart",
+                                        phase_train_restart, torch, cfg)
+        report["ssm_train"] = timed("ssm train", phase_ssm_train, torch,
+                                    scfg)
+        _free(torch)
         grouped_err, ragged_launches = timed("grouped check",
                                              phase_grouped_check, torch, mcfg)
         report["moe_serve"], params = timed(
@@ -4019,6 +4591,9 @@ def main():
                     "flash_attention"]},
             "batched_gemm": {MOE_ARCH: report["moe_forward"][
                 "launch_counts"]["batched_gemm"]}})
+        train_rows = timed("train kernels", phase_train_kernels, torch, cfg,
+                           report["train"]["launches"], scfg,
+                           report["ssm_train"]["iaat_by_proj"])
         # before the tune: after its sweep, torch.profiler traces drop the
         # first kernels of a trace (two of ten or of fifty, on the H100)
         grid = report["grid_check"]
@@ -4028,6 +4603,8 @@ def main():
             max(grid["max_abs_err"]["C"], grid["max_abs_err"]["Z"]))
         report["encdec_step"] = timed("encdec step", phase_encdec_step,
                                       torch, configs.get_config(ENCDEC_ARCH))
+        report["train_profile"] = timed("train profile",
+                                        phase_train_profile, torch, cfg)
         report["tune"] = timed("tune", phase_tune, torch, mcfg)
     except Exception:
         traceback.print_exc()
@@ -4036,13 +4613,15 @@ def main():
     report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry]
     for e in report["kernels"]:
         # the same kernel at the later slices' shapes (decoder-only
-        # families, then enc-dec and forward_train)
-        more = slice_rows.get(e["name"], []) + encdec_rows.get(e["name"], [])
+        # families, then enc-dec and forward_train, then training)
+        more = slice_rows.get(e["name"], []) + encdec_rows.get(
+            e["name"], []) + train_rows.get(e["name"], [])
         if more:
             e["slice_shapes"] = more
     report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows \
         + [r for rs in slice_rows.values() for r in rs] \
-        + [r for rs in encdec_rows.values() for r in rs]
+        + [r for rs in encdec_rows.values() for r in rs] \
+        + [r for rs in train_rows.values() for r in rs]
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

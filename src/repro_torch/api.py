@@ -69,6 +69,9 @@ MAX_PLAN_REGIONS = plan_mod.LAUNCH_REGIONS
 OPS = ("gemm", "matmul", "batched_gemm", "ragged_gemm")
 _GROUPED = ("batched_gemm", "ragged_gemm")
 BACKENDS = ("kernel", "library", "auto", "tuned")
+#: ``Policy.kernels``: the non-GEMM kernel family; "" derives it from
+#: ``backend``
+KERNEL_FAMILIES = ("", "kernel", "library")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,15 +84,25 @@ class Policy:
     falls back to the analytical criterion where it has no entry.
     ``iaat=False`` sends model matmuls straight to ``torch.matmul``; the
     MoE expert FFN's grouped GEMMs still follow ``backend``.
+    ``kernels`` picks the non-GEMM kernel family (flash attention, the
+    grouped expert FFN, the SSD scan): ``kernel`` or ``library``, the
+    empty string deriving it from ``backend`` (the reference's
+    ``kernels``, whose ``pallas``/``xla`` these are).  The trainer pins it
+    to ``library``, since those kernels have no backward, while GEMM
+    routing stays input-aware.
     """
     backend: str = "auto"
     paper_thresholds: bool = False  # use the ARMv8 80/32 bounds verbatim
     iaat: bool = True
+    kernels: str = ""
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"one of {BACKENDS}")
+        if self.kernels not in KERNEL_FAMILIES:
+            raise ValueError(f"unknown kernel family {self.kernels!r}; "
+                             f"expected one of {KERNEL_FAMILIES}")
 
     def threshold(self, trans: str) -> float:
         base = (paper_table.PAPER_SMALL_THRESHOLD_TN if trans == "TN"
@@ -98,10 +111,13 @@ class Policy:
 
     @property
     def use_kernels(self) -> bool:
-        """True under every backend but the forced library: the grouped
-        paths (the MoE expert FFN) then call the grouped executors, and
-        attention over a whole prompt runs the flash kernel; the
-        reference's ``Policy.pallas``."""
+        """True when the non-GEMM family is ``kernel`` (``kernels`` where
+        set, else every backend but the forced library): the grouped paths
+        (the MoE expert FFN) then call the grouped executors, attention
+        over a whole prompt runs the flash kernel and a mamba layer's scan
+        the SSD kernel; the reference's ``Policy.pallas``."""
+        if self.kernels:
+            return self.kernels == "kernel"
         return self.backend != "library"
 
     def replace(self, **kw) -> "Policy":

@@ -199,7 +199,7 @@ def ref_ssd(x, dt, A, B, C, *, D_skip=None, chunk: int = 64,
         Cf = torch.nn.functional.pad(Cf, (0, 0, 0, pad))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
-    zero = torch.zeros((), device=x.device)
+    neg = torch.tensor(float("-inf"), device=x.device)
     h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
     ys = []
     for ci in range(nc):
@@ -209,7 +209,12 @@ def ref_ssd(x, dt, A, B, C, *, D_skip=None, chunk: int = 64,
         cum = torch.cumsum(dA, dim=1)                       # inclusive
         tot = cum[:, -1]                                    # (Bt, H)
         decay = cum[:, :, None, :] - cum[:, None, :, :]     # (Bt,t,s,H)
-        L = torch.where(tri[None, :, :, None], torch.exp(decay), zero)
+        # masked before the exp: above the diagonal the decay is a sum of
+        # -dt * A > 0 that overflows exp at a full chunk, and inf times
+        # the masked zero gradient is NaN in the backward (the
+        # reference's order, exp then mask, has that fault; the forward
+        # is the same bits either way)
+        L = torch.exp(torch.where(tri[None, :, :, None], decay, neg))
         cb = torch.einsum("btn,bsn->bts", Cc, Bc)
         scores = cb[..., None] * L * dtc[:, None]           # (Bt,t,s,H)
         y = torch.einsum("btsh,bshp->bthp", scores, xc)

@@ -7,9 +7,11 @@ directly.
 """
 from __future__ import annotations
 
-from typing import Optional
+import copy
+from typing import Callable, Optional
 
 import torch
+from torch import nn
 
 from repro_torch import api
 from repro_torch.api import Policy
@@ -52,3 +54,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def map_params(module: nn.Module,
+               fn: Callable[[str, torch.Tensor], torch.Tensor],
+               requires_grad: bool = False) -> nn.Module:
+    """A copy of ``module`` whose every parameter ``p`` (named ``name``, as
+    ``named_parameters`` names it) is ``fn(name, p)``, requiring grad or
+    not; a parameter the module shares stays one parameter.  The train
+    step builds its working copy and the optimizer its moments by it."""
+    memo = {id(p): nn.Parameter(fn(name, p), requires_grad=requires_grad)
+            for name, p in module.named_parameters()}
+    return copy.deepcopy(module, memo)

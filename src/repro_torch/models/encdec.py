@@ -18,8 +18,9 @@ one query a decoder layer at every :func:`decode` step (Sq = 1 against
 Sk = S_src), as the reference's ``_dec_block(precomputed_cross=True)``
 does.  Parameters live in :class:`EncDec`, built from a
 ``torch.Generator`` (:func:`init_encdec`) or from the JAX package's tree
-(:func:`params_from_numpy`), with matmul weights in the compute dtype
-(cast once) and norm weights in the parameter dtype, as ``lm.DenseLM``.
+(:func:`params_from_numpy`; back by :func:`params_to_numpy`), with matmul
+weights in the compute dtype (cast once; or a master copy's ``dtype``)
+and norm weights in the parameter dtype, as ``lm.DenseLM``.
 The layer stacks are Python loops; the caches are updated in place.
 """
 from __future__ import annotations
@@ -79,13 +80,16 @@ class EncDec(nn.Module):
 
 
 def init_encdec(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> EncDec:
+                device="cuda", dtype: Optional[torch.dtype] = None
+                ) -> EncDec:
     """Random weights from ``generator`` (on ``device``), with the
     reference's shapes and scales (``lm._initializers``; the scales of
     wo and of the MLP's down projection count the decoder's layers, as
-    the reference's do)."""
+    the reference's do); matmul weights and the embedding in ``dtype``
+    (default: the compute dtype)."""
     _check_family(cfg)
-    ninit, norm, attention, mlp = lm._initializers(cfg, generator, device)
+    ninit, norm, attention, mlp = lm._initializers(cfg, generator, device,
+                                                   dtype)
     d, Vp = cfg.d_model, cfg.vocab_padded
     embed = ninit((Vp, d), d ** -0.5)
     enc = [EncBlock(attention(), mlp(), norm(), norm())
@@ -108,10 +112,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     t, norm = lm._loaders(cfg, device, dtype or cfg.compute_dtype)
 
     def attn(a, i):
-        return lm.Attention(*(t(a[k][i]) for k in ("wq", "wk", "wv", "wo")))
+        return lm.Attention(*(t(a[k][i]) for k in lm.ATTN))
 
     def mlp(m, i):
-        return lm.MLP(*(t(m[k][i]) for k in ("wg", "wu", "wd")))
+        return lm.MLP(*(t(m[k][i]) for k in lm.MLP_W))
 
     def ln(b, k, i):
         return None if b.get(k) is None else norm(b[k][i])
@@ -124,6 +128,27 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                     ln(dc, "ln2", i)) for i in range(cfg.n_layers)]
     return EncDec(t(tree["embed"]), enc, norm(tree.get("enc_norm")), dec,
                   norm(tree.get("final_norm")), t(tree["unembed"]))
+
+
+def params_to_numpy(params: EncDec, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the JAX package's tree,
+    each stack's layers on axis 0 (``lm.params_to_numpy``)."""
+    _check_family(cfg)
+    e, d = lm._stacked(params.enc_blocks), lm._stacked(params.dec_blocks)
+    return {
+        "embed": lm.to_host(params.embed),
+        "enc_blocks": {"attn": lm._fields(e, "attn", lm.ATTN),
+                       "mlp": lm._fields(e, "mlp", lm.MLP_W),
+                       "ln1": e(lambda m: m.ln1), "ln2": e(lambda m: m.ln2)},
+        "enc_norm": lm.to_host(params.enc_norm),
+        "dec_blocks": {"self_attn": lm._fields(d, "self_attn", lm.ATTN),
+                       "cross_attn": lm._fields(d, "cross_attn", lm.ATTN),
+                       "mlp": lm._fields(d, "mlp", lm.MLP_W),
+                       "ln1": d(lambda m: m.ln1),
+                       "ln_x": d(lambda m: m.ln_x),
+                       "ln2": d(lambda m: m.ln2)},
+        "final_norm": lm.to_host(params.final_norm),
+        "unembed": lm.to_host(params.unembed)}
 
 
 # --------------------------------------------------------------------------
@@ -192,7 +217,6 @@ def _unembed(params: EncDec, cfg: ModelConfig, x, be: Policy):
               be)
 
 
-@torch.no_grad()
 def forward_train(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
                   src_embeds):
     """Teacher-forced forward: tokens (B, S_tgt) after src_embeds

@@ -46,9 +46,11 @@ def _f32_einsum(eq: str, a, b):
 
 
 def _full_attn(q, k, v, be: Policy, *, causal, window, q_offset, scale):
-    """Attention over a whole prompt: the CUDA flash kernel under every
-    backend but the forced library (``be.use_kernels``, the reference's
-    ``pallas``), else the chunked oracle in plain torch ops."""
+    """Attention over a whole prompt: the CUDA flash kernel when the
+    policy's non-GEMM family is the kernel (``be.use_kernels``, the
+    reference's ``pallas``: every backend but the forced library, unless
+    ``Policy.kernels`` pins it), else the chunked oracle in plain torch
+    ops."""
     if be.use_kernels:
         return flash_attention.flash_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -228,14 +230,14 @@ def mlp(p, x, be: Policy):
 def init_moe(cfg: ModelConfig, ninit):
     """(router, w_gate, w_up, w_down) with the reference's shapes and
     scales (``layers.py::init_moe``); ``ninit(shape, scale, dtype)`` draws
-    them.  The router is f32; the experts take the compute dtype."""
+    them.  The router is f32; the experts take ``ninit``'s dtype (the
+    compute dtype, or a master copy's)."""
     m = cfg.moe
     d, E, f = cfg.d_model, m.num_experts, m.d_expert
-    cdt = cfg.compute_dtype
     s = 1.0 / math.sqrt(d)
     sd = 1.0 / math.sqrt(f) / math.sqrt(2.0 * cfg.n_layers)
-    return (ninit((d, E), s, torch.float32), ninit((E, d, f), s, cdt),
-            ninit((E, d, f), s, cdt), ninit((E, f, d), sd, cdt))
+    return (ninit((d, E), s, torch.float32), ninit((E, d, f), s),
+            ninit((E, d, f), s), ninit((E, f, d), sd))
 
 
 def _capacity(T: int, m) -> int:
@@ -315,11 +317,11 @@ def _moe_combine(out_buf, meta, T: int, k: int):
 def _expert_ffn(p, buf, be: Policy, x_dtype):
     """(E, C, d) @ experts: grouped small GEMMs (the paper's habitat).
 
-    Under every backend but the forced library (``be.use_kernels``) each
-    grouped product routes through ``api.batched_gemm``, so the per-group
+    When the policy's non-GEMM family is the kernel (``be.use_kernels``)
+    each grouped product routes through ``api.batched_gemm``, so the per-group
     (C, K, N) problem gets the same input-aware treatment as the 2-D path
     (the reference's plain einsum when the router declines the kernel);
-    the forced library runs the einsums directly.  The weights are stored in
+    the library family runs the einsums directly.  The weights are stored in
     the compute dtype already, so the reference's cast is a no-op here.
 
     The gate ``silu(g) * u`` is taken in f32 and rounded once: under

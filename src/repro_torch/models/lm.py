@@ -19,10 +19,12 @@ exactly 0, and a dead q head reads a dead KV head.
 
 Parameters live in :class:`DenseLM`, an ``nn.Module`` built either from a
 ``torch.Generator`` (:func:`init_lm`) or from the JAX package's parameter
-tree (:func:`params_from_numpy`).  Matmul weights are stored in the
-compute dtype, cast once at load (see ``common.mm``); norm weights keep
-the parameter dtype, as the reference's ``rmsnorm`` widens them to f32,
-and the MoE router stays f32, as the reference's does.
+tree (:func:`params_from_numpy`), and carried back to that tree by
+:func:`params_to_numpy`.  Matmul weights are stored in the compute dtype,
+cast once at load (see ``common.mm``), or in another ``dtype`` given at
+construction (the trainer's f32 master copy); norm weights keep the
+parameter dtype, as the reference's ``rmsnorm`` widens them to f32, and
+the MoE router stays f32, as the reference's does.
 
 The layer stack is a Python loop over layers in place of ``lax.scan``,
 so the reference's per-layer ``lax.cond`` between a local and a global
@@ -133,13 +135,15 @@ def _shared_app(cfg: ModelConfig, i: int) -> Optional[int]:
     return i // e if e and i % e == 0 else None
 
 
-def _initializers(cfg: ModelConfig, generator: torch.Generator, device):
+def _initializers(cfg: ModelConfig, generator: torch.Generator, device,
+                  dtype: Optional[torch.dtype] = None):
     """(ninit, norm, attention, mlp): draw a weight, a norm weight (None
     for a non-parametric norm), an :class:`Attention` or an :class:`MLP`
     from ``generator`` on ``device``, with the reference's shapes and
-    scales (``ninit``: f32 normal times a scale, then the cast); shared
-    with ``encdec.init_encdec``."""
-    cdt, pdt = cfg.compute_dtype, cfg.param_torch_dtype
+    scales (``ninit``: f32 normal times a scale, then the cast to
+    ``dtype``, default the compute dtype); shared with
+    ``encdec.init_encdec``."""
+    cdt, pdt = dtype or cfg.compute_dtype, cfg.param_torch_dtype
 
     def ninit(shape, scale, dtype=cdt):
         # drawn in f32 one tensor at a time, then cast: the largest
@@ -177,12 +181,15 @@ def _initializers(cfg: ModelConfig, generator: torch.Generator, device):
     return ninit, norm, attention, mlp
 
 
-def init_lm(cfg: ModelConfig, generator: torch.Generator,
-            device="cuda") -> DenseLM:
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+            dtype: Optional[torch.dtype] = None) -> DenseLM:
     """Random weights from ``generator`` (on ``device``), with the
-    reference's shapes and scales (:func:`_initializers`)."""
+    reference's shapes and scales (:func:`_initializers`); matmul, expert
+    and embedding weights in ``dtype`` (default: the compute dtype; the
+    same draws whatever it is)."""
     _check_family(cfg)
-    ninit, norm, attention, mlp = _initializers(cfg, generator, device)
+    ninit, norm, attention, mlp = _initializers(cfg, generator, device,
+                                                dtype)
     d = cfg.d_model
     blocks = []
     for _ in range(cfg.n_layers):
@@ -217,6 +224,12 @@ def _loaders(cfg: ModelConfig, device, dtype: torch.dtype):
     return t, norm
 
 
+#: a layer's weights by kind, in the reference's tree
+ATTN = ("wq", "wk", "wv", "wo")
+MLP_W = ("wg", "wu", "wd")
+MOE_W = ("router", "w_gate", "w_up", "w_down")
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device="cuda", dtype: Optional[torch.dtype] = None
                       ) -> DenseLM:
@@ -242,15 +255,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             for k in keys:
                 a = a.get(k) if a is not None else None
             return None if a is None else at(a)
-        attn = Attention(*(t(get("attn", k)) for k in ("wq", "wk", "wv",
-                                                        "wo")))
+        attn = Attention(*(t(get("attn", k)) for k in ATTN))
         mlp = moe = None
         if "moe" in b:
             moe = MoE(t(get("moe", "router"), torch.float32),
-                      *(t(get("moe", k)) for k in ("w_gate", "w_up",
-                                                   "w_down")))
+                      *(t(get("moe", k)) for k in MOE_W[1:]))
         else:
-            mlp = MLP(*(t(get("mlp", k)) for k in ("wg", "wu", "wd")))
+            mlp = MLP(*(t(get("mlp", k)) for k in MLP_W))
         return Block(attn, mlp, norm(get("ln1")), norm(get("ln2")), moe)
 
     b = tree["blocks"]
@@ -269,6 +280,66 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     shared = block(tree["shared"]) if cfg.shared_attn_every else None
     return DenseLM(t(tree["embed"]), blocks, norm(tree.get("final_norm")),
                    t(tree.get("unembed")), shared)
+
+
+def to_host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    """A tensor (or None) as a numpy copy on the host; bf16 and f16 come
+    back widened to f32 (numpy has no bf16)."""
+    if t is None:
+        return None
+    t = t.detach()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.to("cpu", copy=True).numpy()
+
+
+def _stacked(mods):
+    """``leaf(get)``: ``get(m)`` of every module ``m`` of ``mods`` stacked
+    on axis 0 as numpy (the reference's layer stack), None where absent;
+    shared with ``encdec.params_to_numpy``."""
+    def leaf(get):
+        vals = [get(m) for m in mods]
+        return None if vals[0] is None else np.stack([to_host(v)
+                                                      for v in vals])
+    return leaf
+
+
+def _fields(leaf, part: str, keys):
+    return {k: leaf(lambda m, k=k: getattr(getattr(m, part), k))
+            for k in keys}
+
+
+def _block_tree(leaf, blk: Block) -> Dict[str, Any]:
+    """An [attn + mlp/moe] block's tree, each leaf drawn by ``leaf``."""
+    t = {"ln1": leaf(lambda m: m.ln1), "attn": _fields(leaf, "attn", ATTN),
+         "ln2": leaf(lambda m: m.ln2)}
+    if blk.moe is not None:
+        t["moe"] = _fields(leaf, "moe", MOE_W)
+    else:
+        t["mlp"] = _fields(leaf, "mlp", MLP_W)
+    return t
+
+
+def params_to_numpy(params: DenseLM, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the module as the JAX
+    package's tree (nested dict of numpy arrays, layers stacked on axis 0,
+    ``None`` for absent norms, attention weights in their padded shapes,
+    the hybrid's ``shared`` block unstacked); bf16 leaves widen to f32."""
+    _check_family(cfg)
+    leaf = _stacked(params.blocks)
+    if _recurrent(cfg):
+        blocks = {"ln1": leaf(lambda m: m.ln1),
+                  "mixer": _fields(leaf, "mixer", SSM.PARAMS)}
+    else:
+        blocks = _block_tree(leaf, params.blocks[0])
+    tree = {"embed": to_host(params.embed), "blocks": blocks,
+            "final_norm": to_host(params.final_norm)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = to_host(params.unembed)
+    if cfg.shared_attn_every:
+        tree["shared"] = _block_tree(lambda get: to_host(get(params.shared)),
+                                     params.shared)
+    return tree
 
 
 # --------------------------------------------------------------------------

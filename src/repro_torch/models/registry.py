@@ -16,7 +16,7 @@ from repro_torch.models import encdec, lm
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable                    # (generator, device) -> params
+    init: Callable                    # (generator, device, dtype) -> params
     forward_train: Callable
     # ^ (params, tokens, be, prefix_embeds=None) -> (logits, aux);
     #   enc-dec: (params, tokens, be, src_embeds)
@@ -40,8 +40,8 @@ class Model:
 
 
 def _build_encdec(cfg: ModelConfig) -> Model:
-    def init(generator, device="cuda"):
-        return encdec.init_encdec(cfg, generator, device)
+    def init(generator, device="cuda", dtype=None):
+        return encdec.init_encdec(cfg, generator, device, dtype)
 
     def fwd(params, tokens, be, src_embeds):
         return encdec.forward_train(params, cfg, be, tokens, src_embeds)
@@ -65,8 +65,8 @@ def build(cfg: ModelConfig) -> Model:
         return _build_encdec(cfg)
     lm._check_family(cfg)
 
-    def init(generator, device="cuda"):
-        return lm.init_lm(cfg, generator, device)
+    def init(generator, device="cuda", dtype=None):
+        return lm.init_lm(cfg, generator, device, dtype)
 
     def fwd(params, tokens, be, prefix_embeds=None):
         return lm.forward_train(params, cfg, be, tokens, prefix_embeds)

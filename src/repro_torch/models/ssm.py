@@ -2,21 +2,25 @@
 ``repro/models/ssm.py``).
 
 :func:`mamba` over a whole sequence is the ``forward_train`` path: the SSD
-kernel (``kernels/ssd.py``) under every policy but the forced library,
-else the chunked oracle ``ref.ref_ssd``.  Every serving path (wave
-prefill, wave decode, paged prefill chunks, paged slot decode) runs ONE
-recurrence with an explicit carry, :func:`paged_step`, token by token
-through ``ref.ref_ssd_decode_step``, so the state after any token is the
-same bits however the tokens were chunked: that is what makes the paged
-engine token-identical to the wave oracle and recompute-resume exact at
-temperature 0.  The short causal conv is ``d_conv`` shifted adds.
+kernel (``kernels/ssd.py``) when the policy's non-GEMM family is the
+kernel (``Policy.use_kernels``), else the chunked oracle ``ref.ref_ssd``
+(the trainer's path: the kernel has no backward).  Every serving path
+(wave prefill, wave decode, paged prefill chunks, paged slot decode) runs
+ONE recurrence with an explicit carry, :func:`paged_step`, token by
+token through ``ref.ref_ssd_decode_step``, so the state after any token
+is the same bits however the tokens were chunked: that is what makes the
+paged engine token-identical to the wave oracle and recompute-resume
+exact at temperature 0.  The short causal conv is ``d_conv`` shifted adds.
 
 Parameters live in :class:`Mamba`.  The matmul weights (``in_proj``,
 ``out_proj``) are in the compute dtype, cast once at load as the rest of
 the port's; ``conv_w``, ``conv_b`` and ``norm_w`` keep the parameter
 dtype and ``A_log``, ``D``, ``dt_bias`` stay f32, as in the reference, so
 the f32 ``conv_w`` promotes the conv output, and with it x, B and C of
-the SSD scan, to f32 as the reference's does.
+the SSD scan, to f32 as the reference's does.  A train step's working
+copy (``train/loop.py``) holds ``conv_w`` (rank 2) in the compute dtype,
+as the reference's step does, and the f32 ``conv_b`` then does the
+promoting.
 """
 from __future__ import annotations
 

@@ -195,6 +195,19 @@ def test_policy_kernels_family():
     # on the kernel
     pol = api.Policy(backend="kernel", iaat=False)
     assert pol.use_kernels
+    # ``kernels`` pins the family whatever the backend (the reference's
+    # ``Policy.kernels``); empty derives it, as every policy built so far
+    for backend in api.BACKENDS:
+        assert not api.Policy(backend=backend,
+                              kernels="library").use_kernels
+        assert api.Policy(backend=backend, kernels="kernel").use_kernels
+        assert api.Policy(backend=backend).use_kernels == \
+            (backend != "library")
+    assert api.named_policy("tuned").kernels == ""
+    assert not api.named_policy("auto").replace(
+        kernels="library").use_kernels
+    with pytest.raises(ValueError, match="kernel family"):
+        api.Policy(kernels="xla")
 
 
 # -- the MoE layer ------------------------------------------------------------
