@@ -214,10 +214,14 @@ fails the run:
 37. train — olmo-1b at full width and depth (f32 master, bf16 compute)
             through launch.train.run for 8 steps of 4 x 64 tokens under
             ``auto`` with the non-GEMM kernels pinned to the library
-            (Policy.kernels): IAAT launches in every step (q/k/v/o at
-            M 256; the backward is the adjoint GEMMs), no flash, grouped
-            or SSD launch, every loss, grad norm and lr finite, the lr
-            the schedule's; then one step from one seeded state and batch
+            (Policy.kernels), on the launcher's 1 x 1 host mesh (a
+            one-rank NCCL group), its rules and activation context, and
+            remat "full": exactly TRAIN_IAAT_PER_STEP = 128 IAAT launches
+            in every step (q/k/v/o at M 256, 64 in the forward and 64
+            again in the recompute of each checkpointed layer; the
+            backward's adjoint GEMMs go to the library), no flash,
+            grouped or SSD launch, every loss, grad norm and lr finite,
+            the lr the schedule's; then one step from one seeded state and batch
             under ``auto``, the forced kernel and the library (times and
             IAAT launches of each), kernel against library within
             TRAIN_TOL in bf16 and with the weights widened to f32 (run
@@ -230,9 +234,14 @@ fails the run:
             the uninterrupted run's than the two uninterrupted runs are
             from each other (0 on the H100: bit for bit);
 39. ssm train — mamba2-780m at full width and depth, 3 steps of 2 x 64
-            tokens under ``auto``: IAAT launches in every step, all of
-            them at in_proj (128 x 1536 x 6448, 2 regions) and out_proj
-            (128 x 3072 x 1536), counted by shape; the SSD scan through
+            tokens under ``auto`` on the host mesh with remat "full":
+            exactly SSM_TRAIN_IAAT_PER_STEP = 288 IAAT launches in every
+            step, all of them at in_proj (128 x 1536 x 6448, 2 regions)
+            and out_proj (128 x 3072 x 1536), counted by shape: 3 a layer
+            in the forward and 3 again in the recompute (out_proj, the
+            layer's last GEMM, runs again though the recompute stops
+            right after it: the IAAT kernel's autograd Function saves
+            its inputs after its forward); the SSD scan through
             ref.ref_ssd under autograd (no SSD launch);
 40. train kernels — the IAAT kernel at the train phase's q/k/v/o shape
             (256 x 2048 x 2048) and at mamba2's in_proj and out_proj
@@ -246,7 +255,32 @@ fails the run:
             state), and a torch.profiler trace's device time by group
             (the IAAT kernel, the library's GEMMs, the rest) and the
             device's idle share (run after phase 36, the last other
-            trace, and before phase 16).
+            trace, and before phase 16);
+42. moe shards — moonshot-v1-16b-a3b at full width and depth (the
+            "moe serve" weights): layer 0's MoE on 2048 tokens under
+            ``_moe_shards`` = 8 (the per-data-shard branch: eight
+            dispatch groups of 256 tokens, the expert FFN on the
+            (8, E, C, d) buffer) against eight one-shard calls on the
+            256-token slices, their expert choices pinned to the
+            sharded run's: bf16 within MOE_SHARD_TOL["bfloat16"], the
+            layer's weights widened to f32 within MOE_SHARD_TOL
+            ["float32"], of the largest output; then forward_train of
+            1 x 2048 tokens under ``auto`` at 8 groups and at 1: 48
+            flash launches each, finite logits (run after phase 29);
+43. dryrun — the dry-run CLI (launch/dryrun.py, started in a CPU-only
+            subprocess after phase 2) for olmo-1b and moonshot-v1-16b-a3b
+            x train_4k and decode_32k x the 16 x 16 and 2 x 16 x 16
+            meshes on the meta device: all 8 cells ok, and each cell's
+            per-device argument bytes those of the reference
+            (DRYRUN_BYTES; the cache less the reference's 4-byte device
+            ``pos``, which the port keeps on the host); then the anchor,
+            olmo-1b at B 4 x S 64 on the 1 x 1 mesh under ``library``:
+            the dry run's train-state bytes within 1 % of the change of
+            torch.cuda.memory_allocated() across init_train_state on the
+            card, the step counter's matmul FLOPs of one train step on
+            meta equal to the same counter's around a real step on the
+            card, and the real step's time beside the roofline's step_s
+            (printed; run after phase 41).
 Phase 37 also prints the share of outputs of the IAAT kernel equal to
 the bit to torch.matmul's at the train step's GEMM shapes (a reading,
 not a check).
@@ -789,12 +823,15 @@ def _count_by_shape():
 
     def counted(x, w, **kw):
         n0 = iaat_gemm.launch_count("iaat_gemm")
-        out = matmul(x, w, **kw)
-        n = iaat_gemm.launch_count("iaat_gemm") - n0
-        if n:
-            key = f"{x.numel() // x.shape[-1]}x{w.shape[0]}x{w.shape[1]}"
-            _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + n
-        return out
+        try:
+            return matmul(x, w, **kw)
+        finally:
+            # also where the call raises after its launches: a recompute
+            # that torch's checkpoint stops inside the last GEMM
+            n = iaat_gemm.launch_count("iaat_gemm") - n0
+            if n:
+                key = f"{x.numel() // x.shape[-1]}x{w.shape[0]}x{w.shape[1]}"
+                _BY_SHAPE[key] = _BY_SHAPE.get(key, 0) + n
     api.matmul = counted
 
 
@@ -3969,6 +4006,49 @@ SSM_TRAIN_B, SSM_TRAIN_S, SSM_TRAIN_STEPS = 2, 64, 3
 #: sign differs): 0.3 allows 2.25 % of them, the near-zero gradients.
 TRAIN_TOL = {"float32": (1e-5, 1e-5, 1e-4, 1e-4),
              "bfloat16": (2e-3, 3e-3, 5e-2, 0.3)}
+#: IAAT launches a train step under remat "full": each checkpointed layer
+#: runs its forward again in the backward pass, so olmo-1b's 64 q/k/v/o
+#: launches (16 layers x 4) and mamba2-780m's 144 (48 layers x in_proj's
+#: 2 regions and out_proj) are made twice.  The recompute stops once the
+#: backward has every tensor it saved, but the IAAT kernel's autograd
+#: Function saves its inputs after its forward has run, so out_proj, each
+#: mamba layer's last GEMM, is launched again and its product dropped
+TRAIN_IAAT_PER_STEP = 128
+SSM_TRAIN_IAAT_PER_STEP = 288
+#: the moe shards phase: dispatch groups and tokens; the sharded layer
+#: against the one-shard calls, max abs difference over the largest
+#: output: f32 sums of the same products in other orders, and bf16, where
+#: the expert FFN's kernel and library round apart
+MOE_SHARDS, MOE_SHARD_T = 8, 2048
+MOE_SHARD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+#: the dry-run phase's cells and the reference's per-device argument
+#: bytes of each (its own model.specs, make_rules, train_state_specs,
+#: cache_shardings and jax.eval_shape on the abstract 16 x 16 and
+#: 2 x 16 x 16 meshes, tests/test_torch_parallel.py's ref_argument_bytes;
+#: the caches hold its 4-byte device pos)
+DRYRUN_ARCHS = ("olmo-1b", "moonshot-v1-16b-a3b")
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_BYTES = {
+    ("olmo-1b", "train_4k", "single"): {"batch": 524288,
+                                        "state": 127795204},
+    ("olmo-1b", "decode_32k", "single"): {"batch": 32, "params": 21299200,
+                                          "cache": 2147483652},
+    ("moonshot-v1-16b-a3b", "train_4k", "single"): {"batch": 524288,
+                                                    "state": 1791641092},
+    ("moonshot-v1-16b-a3b", "decode_32k", "single"): {
+        "batch": 32, "params": 298606848, "cache": 6442450948},
+    ("olmo-1b", "train_4k", "multi"): {"batch": 262144,
+                                       "state": 127795204},
+    ("olmo-1b", "decode_32k", "multi"): {"batch": 16, "params": 21299200,
+                                         "cache": 1073741828},
+    ("moonshot-v1-16b-a3b", "train_4k", "multi"): {"batch": 262144,
+                                                   "state": 1791641092},
+    ("moonshot-v1-16b-a3b", "decode_32k", "multi"): {
+        "batch": 16, "params": 298606848, "cache": 3221225476}}
+#: the reference's device pos, which the port keeps on the host
+POS_BYTES = 4
+#: the anchor: olmo-1b's train step on the 1 x 1 mesh at B x S
+ANCHOR_B, ANCHOR_S = 4, 64
 
 
 def _train_args(*argv):
@@ -3992,31 +4072,47 @@ def _train_run(torch, args, cfg=None):
     """``launch.train.run`` with the kernels' launches counted per step
     (each step counted from 0, read where the launcher records the step:
     ``train.loop.record_step``); ``cfg`` in place of the config of
-    ``--arch`` (a depth cut).  Returns (its result, the per-step
+    ``--arch`` (a depth cut).  The run must go through the launcher's
+    host mesh: a one-rank NCCL group and a 1 x 1 ("data", "model") mesh,
+    taken down when the run ends.  Returns (its result, the per-step
     counts)."""
+    import torch.distributed as dist
     from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import train as train_mod
     from repro_torch.train import loop as train_loop
-    per_step = []
+    per_step, meshes = [], []
     record = train_loop.record_step
+    host = mesh_mod.make_host_mesh
 
     def counted(step, m, dt):
         record(step, m, dt)
         per_step.append(dict(_counts(), step=step,
                              iaat_by_shape=dict(_BY_SHAPE)))
         _reset_counts()
+
+    def host_mesh(device):
+        mesh = host(device)
+        meshes.append((dist.get_backend(), dist.get_world_size(),
+                       tuple(mesh.shape), tuple(mesh.mesh_dim_names)))
+        return mesh
     get = configs.get_config if cfg is None else (lambda arch: cfg)
     _reset_counts()
     with _replaced(train_loop, "record_step", counted), \
-            _replaced(configs, "get_config", get):
+            _replaced(configs, "get_config", get), \
+            _replaced(mesh_mod, "make_host_mesh", host_mesh):
         out = train_mod.run(args)
+    if meshes != [("nccl", 1, (1, 1), ("data", "model"))] or \
+            dist.is_initialized():
+        raise AssertionError(f"train run: host meshes {meshes}, a group "
+                             f"left behind: {dist.is_initialized()}")
     return out, per_step
 
 
-def _check_history(out, per_step, args, what, want_iaat=True):
-    """Every loss, grad norm and lr finite, the lr the schedule's, IAAT
-    launches > 0 in every step (``want_iaat``), no flash, grouped or SSD
-    launch (pinned to the library)."""
+def _check_history(out, per_step, args, what, want_iaat=1):
+    """Every loss, grad norm and lr finite, the lr the schedule's, at
+    least ``want_iaat`` IAAT launches in every step, no flash, grouped or
+    SSD launch (pinned to the library)."""
     from repro_torch.train import optimizer as opt
     c = opt.OptConfig(peak_lr=args.lr, warmup_steps=args.warmup,
                       decay_steps=max(args.steps, 10))
@@ -4024,7 +4120,7 @@ def _check_history(out, per_step, args, what, want_iaat=True):
         ok = all(math.isfinite(h[k]) for k in ("loss", "grad_norm", "lr"))
         if not ok or h["lr"] != opt.schedule(h["step"], c):
             raise AssertionError(f"{what} step {h['step']}: {h}")
-        if (want_iaat and n["iaat_gemm"] < 1) or n["flash_attention"] or \
+        if n["iaat_gemm"] < want_iaat or n["flash_attention"] or \
                 n["batched_gemm"] or n["ragged_gemm"] or n["ssd_scan"]:
             raise AssertionError(f"{what} step {h['step']}: launches {n}")
 
@@ -4176,10 +4272,12 @@ def _train_gemm_equality(torch, cfg):
 
 def phase_train(torch, cfg):
     """olmo-1b at full width and depth through ``launch.train.run`` for
-    TRAIN_STEPS steps under ``auto`` (bf16 compute, f32 master): IAAT
-    launches in every step, no other kernel's, finite metrics, the
-    schedule's lr; then one step under the forced kernel against the
-    library, in bf16 and with the weights widened to f32."""
+    TRAIN_STEPS steps under ``auto`` (bf16 compute, f32 master) on the
+    host mesh with remat "full": TRAIN_IAAT_PER_STEP IAAT launches in
+    every step (the forward's 64 and the recompute's 64), no other
+    kernel's, finite metrics, the schedule's lr; then one step under the
+    forced kernel against the library, in bf16 and with the weights
+    widened to f32."""
     from repro_torch import api
     prev = api.current_policy()
     args = _train_args("--arch", "olmo-1b", "--steps", str(TRAIN_STEPS),
@@ -4189,6 +4287,9 @@ def phase_train(torch, cfg):
     _check_history(out, per_step, args, "train")
     secs = [h["seconds"] for h in out["history"]]
     iaat = [n["iaat_gemm"] for n in per_step]
+    if set(iaat) != {TRAIN_IAAT_PER_STEP}:
+        raise AssertionError(f"train: IAAT launches a step {iaat}, want "
+                             f"{TRAIN_IAAT_PER_STEP}")
     log(f"train {cfg.name} auto B{TRAIN_B} x S{TRAIN_S}: losses "
         f"{[round(h['loss'], 5) for h in out['history']]}, grad norms "
         f"{[round(h['grad_norm'], 4) for h in out['history']]}; step s "
@@ -4311,11 +4412,13 @@ def ssm_train_shapes(scfg):
 
 def phase_ssm_train(torch, scfg):
     """mamba2-780m at full width and depth through ``launch.train.run``
-    for SSM_TRAIN_STEPS steps under ``auto``: IAAT launches in every step,
-    at in_proj and out_proj in every step and nowhere else (counted by
-    shape, ``_count_by_shape``), no SSD launch (the scan runs
-    ``ref.ref_ssd`` under autograd).  Returns the launches by projection
-    for phase_train_kernels, which holds the kernel at those shapes."""
+    for SSM_TRAIN_STEPS steps under ``auto`` on the host mesh with remat
+    "full": SSM_TRAIN_IAAT_PER_STEP IAAT launches in every step (the
+    forward's 144 and the recompute's 144), at in_proj and
+    out_proj in every step and nowhere else (counted by shape,
+    ``_count_by_shape``), no SSD launch (the scan runs ``ref.ref_ssd``
+    under autograd).  Returns the launches by projection for
+    phase_train_kernels, which holds the kernel at those shapes."""
     from repro_torch import api
     prev = api.current_policy()
     args = _train_args("--arch", SSM_ARCH, "--steps", str(SSM_TRAIN_STEPS),
@@ -4324,6 +4427,9 @@ def phase_ssm_train(torch, scfg):
     out, per_step = _train_run(torch, args)
     _check_history(out, per_step, args, "ssm train")
     iaat = [n["iaat_gemm"] for n in per_step]
+    if set(iaat) != {SSM_TRAIN_IAAT_PER_STEP}:
+        raise AssertionError(f"ssm train: IAAT launches a step {iaat}, want"
+                             f" {SSM_TRAIN_IAAT_PER_STEP}")
     shapes = {"x".join(map(str, mkn)): name
               for name, mkn in ssm_train_shapes(scfg).items()}
     by_proj = dict.fromkeys(shapes.values(), 0)
@@ -4439,6 +4545,222 @@ def phase_train_kernels(torch, cfg, launches, scfg, ssm_launches):
     return {"iaat_gemm": rows}
 
 
+def phase_moe_shards(torch, cfg, params):
+    """moonshot's MoE layer 0 (its weights as "moe serve" loaded them) on
+    MOE_SHARD_T tokens under the per-data-shard branch (``_moe_shards`` =
+    MOE_SHARDS in the activation context, on a 1 x 1 stand-in mesh),
+    against MOE_SHARDS one-shard calls on the token slices with their
+    expert choices pinned to the sharded run's (the router's matmul at
+    another M can round a near-tie apart), under ``auto``: bf16 as served,
+    then the layer's weights widened to f32; each within MOE_SHARD_TOL of
+    the largest output, the aux the slices' mean.  Then forward_train of
+    1 x MOE_SHARD_T tokens under ``auto`` at MOE_SHARDS groups and at 1:
+    one flash launch a layer each, finite logits."""
+    from repro_torch import api
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers, lm
+    from repro_torch.parallel.ctx import activation_sharding
+    auto = api.Policy(backend="auto")
+    one = mesh_mod.mesh_shape((1, 1), ("data", "model"))
+
+    def shards(G):
+        return activation_sharding(one, {"_moe_shards": G,
+                                         "moe_group": None})
+    G, T, d = MOE_SHARDS, MOE_SHARD_T, cfg.d_model
+    g = torch.Generator(device="cuda").manual_seed(48)
+    x0 = torch.randn(1, T, d, generator=g, device="cuda")
+    blk = params.blocks[0].moe
+    out = {}
+    with torch.no_grad():
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            p = blk if dt == "bfloat16" else lm.MoE(*(
+                getattr(blk, k).float() for k in lm.MOE_W))
+            x = x0.to(dtype)
+            with shards(G), _ExpertChoices(layers) as ch:
+                y, aux = layers.moe(p, x, auto, cfg)
+            idx = ch.seen[0]
+            part = T // G
+            pins = [idx[i * part:(i + 1) * part] for i in range(G)]
+            ys, auxs = [], []
+            with _ExpertChoices(layers, pinned=pins):
+                for i in range(G):
+                    yi, ai = layers.moe(p, x[:, i * part:(i + 1) * part],
+                                        auto, cfg)
+                    ys.append(yi)
+                    auxs.append(ai)
+            want = torch.cat(ys, 1)
+            ab, rel = _rel_err(y, want)
+            aux_want = torch.stack(auxs).mean()
+            aux_rel = abs(float(aux) - float(aux_want)) / abs(float(aux_want))
+            out[dt] = {"max_abs": ab, "rel": rel, "aux_rel": aux_rel}
+            if not (rel <= MOE_SHARD_TOL[dt] and aux_rel <= 1e-5) or \
+                    tuple(idx.shape) != (T, cfg.moe.top_k):
+                raise AssertionError(f"moe shards {dt}: {out[dt]}")
+        toks = torch.randint(0, cfg.vocab, (1, T), generator=g,
+                             device="cuda")
+        runs = {}
+        for groups in (G, 1):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with shards(groups):
+                logits, aux = lm.forward_train(params, cfg, auto, toks)
+            torch.cuda.synchronize()
+            n = _counts()
+            runs[groups] = {"seconds": time.perf_counter() - t0,
+                            "flash": n["flash_attention"],
+                            "batched_gemm": n["batched_gemm"],
+                            "iaat": n["iaat_gemm"], "aux": float(aux),
+                            "finite": bool(torch.isfinite(logits).all())}
+            if runs[groups]["flash"] != cfg.n_layers or \
+                    not runs[groups]["finite"]:
+                raise AssertionError(f"moe shards forward G {groups}: "
+                                     f"{runs[groups]}")
+            del logits
+    log(f"moe shards {cfg.name}: layer 0 on {T} tokens in {G} groups "
+        f"against {G} one-shard calls (choices pinned): " + "; ".join(
+            f"{k} max abs {v['max_abs']:.3g}, rel {v['rel']:.3g} (tol "
+            f"{MOE_SHARD_TOL[k]}), aux rel {v['aux_rel']:.3g}"
+            for k, v in out.items()) + "; forward_train 1x" + str(T) + ": "
+        + "; ".join(f"G {k}: {v['seconds']:.3f} s, flash {v['flash']}, "
+                    f"batched_gemm {v['batched_gemm']}, IAAT {v['iaat']}, "
+                    f"aux {v['aux']:.6g}" for k, v in runs.items()))
+    return {"layer": out, "forward": runs}
+
+
+def start_dryrun():
+    """The dry-run CLI for the phase's cells in a subprocess that sees no
+    card (CUDA_VISIBLE_DEVICES empty): it runs on the CPU's meta device
+    while the card phases run.  Returns the process; its log and JSON go
+    to chiprun_out/."""
+    import os
+    OUT_DIR.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    logf = open(OUT_DIR / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(DRYRUN_ARCHS), "--shape", ",".join(DRYRUN_SHAPES),
+         "--mesh", "both", "--out", str(OUT_DIR / "dryrun.json")],
+        cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    proc.log_file = logf
+    return proc
+
+
+def phase_dryrun(torch, cfg, proc, timeout=900):
+    """The dry run's cells (``start_dryrun``): every one ok, its per-device
+    argument bytes DRYRUN_BYTES's (the cache POS_BYTES short), its
+    seconds; then the anchor, olmo-1b (``cfg``) at ANCHOR_B x ANCHOR_S on
+    the 1 x 1 mesh under ``library``: the dry run's train-state bytes
+    against the change of torch.cuda.memory_allocated() across
+    init_train_state (within 1 %), the step counter's matmul FLOPs of one
+    step on meta against the same counter around a real step on the card
+    (equal), and the real step's time (median of 3, warm) beside the
+    roofline's step_s."""
+    from repro_torch import api
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.launch.step_analyzer import StepCounter
+    from repro_torch.models import registry
+    from repro_torch.parallel import rules as R
+    from repro_torch.parallel.ctx import activation_axes, activation_sharding
+    from repro_torch.train import loop as TL
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=timeout)
+    proc.log_file.close()
+    waited = time.perf_counter() - t0
+    res = json.loads((OUT_DIR / "dryrun.json").read_text())
+    cells = {}
+    for (arch, shape, mesh), want in DRYRUN_BYTES.items():
+        rec = res.get(f"{arch}|{shape}|{mesh}", {})
+        got = rec.get("memory_analysis", {}).get("arguments")
+        if rec.get("status") != "ok" or got is None:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: "
+                                 f"{rec.get('status')} "
+                                 f"{rec.get('error', '')}")
+        exp = dict(want)
+        if "cache" in exp:
+            exp["cache"] -= POS_BYTES
+        if got != exp:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: argument "
+                                 f"bytes {got}, want {exp}")
+        cells[f"{arch}|{shape}|{mesh}"] = {
+            "count_s": rec["count_s"], "arguments": got,
+            "flops_per_dev": rec["roofline"]["flops"],
+            "hbm_bytes_per_dev": rec["roofline"]["hbm_bytes"],
+            "step_s": rec["roofline"]["step_s"],
+            "dominant": rec["roofline"]["dominant"]}
+    if rc != 0 or len(cells) != len(DRYRUN_BYTES):
+        raise AssertionError(f"dryrun: exit {rc}, cells {sorted(cells)}")
+    log(f"dryrun: {len(cells)} cells ok on the meta device (waited "
+        f"{waited:.1f} s for the subprocess): " + "; ".join(
+            f"{k} {v['count_s']} s, args {v['arguments']}, "
+            f"flops/dev {v['flops_per_dev']:.4g}, step_s "
+            f"{v['step_s']:.4g} ({v['dominant']})"
+            for k, v in cells.items()))
+    # the anchor
+    lib = api.named_policy("library")
+    one = mesh_mod.mesh_shape((1, 1), ("data", "model"))
+    shape = ShapeConfig("anchor", ANCHOR_S, ANCHOR_B, "train")
+    rec = dryrun.run_cell("olmo-1b", "anchor", False, accum=1, mesh=one,
+                          cfg=cfg, shape=shape)
+    state_b = rec["memory_analysis"]["arguments"]["state"]
+    model = registry.build(cfg)
+    _free(torch)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    st = TL.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated() - m0
+    state_rel = abs(state_b - alloc) / alloc
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (ANCHOR_B, ANCHOR_S),
+                              generator=g, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    step = TL.make_train_step(model, TL.TrainConfig(), lib)
+    act = activation_axes(cfg, one, R.batch_spec(one, ANCHOR_B))
+    walls = []
+    with api.using(lib), activation_sharding(one, act):
+        with StepCounter() as card:
+            st, m = step(st, batch)
+            float(m["loss"])
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = step(st, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+    wall = sorted(walls[1:])[1]
+    meta_flops = rec["analyzer"]["flops"]
+    out = {"cells": cells, "waited_s": waited,
+           "anchor": {"state_bytes_dryrun": state_b,
+                      "state_bytes_allocated": alloc,
+                      "state_rel": state_rel, "flops_meta": meta_flops,
+                      "flops_card": card.flops, "dots_meta":
+                      rec["analyzer"]["dots"], "dots_card": card.dots,
+                      "bytes_meta": rec["analyzer"]["bytes"],
+                      "bytes_card": card.bytes, "step_s_card": wall,
+                      "roofline": rec["roofline"]}}
+    log(f"dryrun anchor {cfg.name} B{ANCHOR_B} x S{ANCHOR_S} (library, 1x1 "
+        f"mesh): train state {state_b} B (dry run) against {alloc} B "
+        f"allocated ({state_rel:.3g} rel, tol 0.01); step matmul FLOPs "
+        f"{meta_flops} on meta, {card.flops} on the card ({card.dots} "
+        f"matmuls); operand + output bytes {rec['analyzer']['bytes']} meta,"
+        f" {card.bytes} card; step {wall * 1e3:.2f} ms on the card against "
+        f"the roofline's {rec['roofline']['step_s'] * 1e3:.3f} ms "
+        f"({rec['roofline']['dominant']}-bound)")
+    del st
+    _free(torch)
+    if not state_rel <= 0.01 or meta_flops != card.flops or \
+            card.flops <= 0:
+        raise AssertionError(f"dryrun anchor: {out['anchor']}")
+    return out
+
+
 def _mixtral_cfg():
     import dataclasses
     from repro_torch import configs
@@ -4483,9 +4805,11 @@ def main():
         phase_s[name] = time.perf_counter() - t0
         return out
 
+    dry = None
     try:
         report["card"] = timed("card", phase_card)
         report["flash_build"] = timed("build", phase_build)
+        dry = start_dryrun()
         max_err = timed("check", phase_check, torch)
         report["concurrent_split"] = timed(
             "concurrent split", phase_concurrent_split, torch, mcfg)
@@ -4528,6 +4852,8 @@ def main():
                                    params)
         report["moe_forward"] = timed("moe forward", phase_moe_forward,
                                       torch, mcfg, params)
+        report["moe_shards"] = timed("moe shards", phase_moe_shards, torch,
+                                     mcfg, params)
         del params
         torch.cuda.empty_cache()
         report["ssm_serve"], params = timed("ssm serve", phase_ssm_serve,
@@ -4605,11 +4931,16 @@ def main():
                                       torch, configs.get_config(ENCDEC_ARCH))
         report["train_profile"] = timed("train profile",
                                         phase_train_profile, torch, cfg)
+        report["dryrun"] = timed("dryrun", phase_dryrun, torch, cfg, dry)
         report["tune"] = timed("tune", phase_tune, torch, mcfg)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        if dry is not None and dry.poll() is None:
+            dry.kill()
+            dry.wait()
     report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry]
     for e in report["kernels"]:
         # the same kernel at the later slices' shapes (decoder-only

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -190,3 +190,36 @@ class ModelConfig:
         expert_all = m.num_experts * 3 * self.d_model * m.d_expert * self.n_layers
         expert_act = m.top_k * 3 * self.d_model * m.d_expert * self.n_layers
         return full - expert_all + expert_act
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Assignment rules: long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k":
+        sub = cfg.attn.is_subquadratic() or cfg.family in ("ssm", "hybrid") \
+            or cfg.attn.kind == "local_global"
+        if not sub:
+            return False, "pure full-attention arch: long_500k skipped per assignment"
+    if shape.kind == "decode" and cfg.family == "encdec" \
+            and shape.name == "long_500k":
+        return False, "enc-dec 500k decode not meaningful"
+    return True, ""

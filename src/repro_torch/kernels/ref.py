@@ -117,9 +117,13 @@ def chunked_mha(q, k, v, *, causal: bool = True,
     qi = torch.arange(Sq, device=dev)[:, None] + q_offset
     neg = torch.tensor(float("-inf"), device=dev)
     zero = torch.zeros((), device=dev)
-    m = torch.full((B, Hq, Sq), float("-inf"), device=dev)
-    l = torch.zeros((B, Hq, Sq), device=dev)
-    acc = torch.zeros((B, Hq, Sq, D), device=dev)
+    from repro_torch.parallel.ctx import constrain
+    m = constrain(torch.full((B, Hq, Sq), float("-inf"), device=dev),
+                  "batch", "heads", None)
+    l = constrain(torch.zeros((B, Hq, Sq), device=dev),
+                  "batch", "heads", None)
+    acc = constrain(torch.zeros((B, Hq, Sq, D), device=dev),
+                    "batch", "heads", None, None)
     for ci in range(nc):
         sl = slice(ci * kv_chunk, (ci + 1) * kv_chunk)
         kb = torch.repeat_interleave(k[:, :, sl], rep, dim=1)
@@ -200,7 +204,10 @@ def ref_ssd(x, dt, A, B, C, *, D_skip=None, chunk: int = 64,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))
     neg = torch.tensor(float("-inf"), device=x.device)
-    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device)
+    from repro_torch.parallel.ctx import constrain
+    h = constrain(torch.zeros((Bt, H, P, N), dtype=torch.float32,
+                              device=x.device),
+                  "batch", "ssm_heads", None, None)
     ys = []
     for ci in range(nc):
         sl = slice(ci * chunk, (ci + 1) * chunk)

@@ -1,6 +1,6 @@
-"""Training launcher on one card (counterpart of
-``repro/launch/train.py``): config -> model -> f32 train state -> train
-loop with checkpointing, fault handling, straggler monitoring and
+"""Training launcher (counterpart of ``repro/launch/train.py``): config
+-> mesh -> rules -> f32 train state -> train loop under the activation
+context, with checkpointing, fault handling, straggler monitoring and
 deterministic data.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \
@@ -19,9 +19,16 @@ Checkpoints are the reference's format (``train/checkpoint.py``): a
 ``--ckpt-dir`` the JAX trainer wrote resumes here and the other way
 round.  The data are tokens only, as the reference's, so the families
 that need frontend embeddings (VLM, audio) are refused; their batches go
-through ``train.loop.make_train_step`` directly.  ``--production-mesh``
-and ``--multi-pod`` need ``parallel/``, which is not ported (ROADMAP §1
-item 5); they raise.
+through ``train.loop.make_train_step`` directly.
+
+The mesh is the 1 x 1 host mesh of one rank (``launch/mesh.py``: a
+one-rank NCCL group on the card, gloo on the CPU, taken down at the
+end); the sharding rules (``parallel/rules.py``) are logged, and the
+loop runs in the activation context (``parallel/ctx.py``), as the
+reference's.  ``--production-mesh`` (``--multi-pod``) asks for the
+16 x 16 (2 x 16 x 16) mesh, which raises unless the world holds its 256
+(512) ranks; a mesh of more than one rank raises too, because running
+on several ranks is not ported (ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
@@ -31,7 +38,10 @@ import time
 import torch
 
 from repro_torch import api, configs, obs
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.registry import build as build_model
+from repro_torch.parallel import rules as R
+from repro_torch.parallel.ctx import activation_axes, activation_sharding
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import data as data_mod
 from repro_torch.train import fault
@@ -73,10 +83,6 @@ def run(args) -> dict:
     ``grad_norm``, ``lr``, ``step``), ``final_step``, the monitor's
     summary and ``history`` (each executed step's metrics and seconds, a
     restart's replayed steps included)."""
-    if args.production_mesh or args.multi_pod:
-        raise NotImplementedError(
-            "--production-mesh / --multi-pod need parallel/ (meshes and "
-            "sharding rules), which is not ported yet (ROADMAP §1 item 5)")
     cfg = configs.get_smoke(args.arch) if args.smoke \
         else configs.get_config(args.arch)
     if cfg.frontend is not None:
@@ -88,7 +94,26 @@ def run(args) -> dict:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
+    mesh = mesh_mod.make_production_mesh(
+        multi_pod=args.multi_pod, device_type=torch.device(device).type) \
+        if args.production_mesh else mesh_mod.make_host_mesh(device)
+    try:
+        return _run(args, cfg, device, mesh)
+    finally:
+        mesh_mod.release_mesh()
+
+
+def _run(args, cfg, device, mesh) -> dict:
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"a mesh of {mesh.size()} ranks: training on several ranks "
+            "(state placed by the rules as DTensors) is not ported yet "
+            "(ROADMAP §1 item 6); train on the host mesh")
     model = build_model(cfg)
+    rules = R.make_rules(cfg, mesh)
+    log.info("sharding rules on %s:\n%s", dict(R.axis_sizes(mesh)),
+             rules.report())
+    act_axes = activation_axes(cfg, mesh, R.batch_spec(mesh, args.batch))
     # the one policy install of the run: GEMM routing as --backend says,
     # the kernels without a backward pinned to the library
     be = api.install(api.named_policy(args.backend).replace(
@@ -145,8 +170,9 @@ def run(args) -> dict:
             ckpt.wait()
         return args.steps
 
-    final = fault.run_with_restarts(train_once,
-                                    max_restarts=args.max_restarts)
+    with activation_sharding(mesh, act_axes):
+        final = fault.run_with_restarts(train_once,
+                                        max_restarts=args.max_restarts)
     metrics_out["final_step"] = final
     metrics_out["monitor"] = monitor.summary()
     return metrics_out

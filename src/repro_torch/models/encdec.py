@@ -36,7 +36,7 @@ from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
-from repro_torch.models.common import mm, rmsnorm
+from repro_torch.models.common import mm, remat, rmsnorm, stack_specs
 
 #: the families this module serves
 FAMILIES = ("encdec", "audio")
@@ -130,25 +130,45 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                   norm(tree.get("final_norm")), t(tree["unembed"]))
 
 
-def params_to_numpy(params: EncDec, cfg: ModelConfig) -> Dict[str, Any]:
+def params_to_numpy(params: EncDec, cfg: ModelConfig,
+                    form=lm.NUMPY) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the JAX package's tree,
-    each stack's layers on axis 0 (``lm.params_to_numpy``)."""
+    each stack's layers on axis 0, its leaves drawn by ``form``
+    (``lm.params_to_numpy``)."""
     _check_family(cfg)
-    e, d = lm._stacked(params.enc_blocks), lm._stacked(params.dec_blocks)
+    draw = form[0]
+    e = lm._stacked(params.enc_blocks, form)
+    d = lm._stacked(params.dec_blocks, form)
     return {
-        "embed": lm.to_host(params.embed),
+        "embed": draw(params.embed),
         "enc_blocks": {"attn": lm._fields(e, "attn", lm.ATTN),
                        "mlp": lm._fields(e, "mlp", lm.MLP_W),
                        "ln1": e(lambda m: m.ln1), "ln2": e(lambda m: m.ln2)},
-        "enc_norm": lm.to_host(params.enc_norm),
+        "enc_norm": draw(params.enc_norm),
         "dec_blocks": {"self_attn": lm._fields(d, "self_attn", lm.ATTN),
                        "cross_attn": lm._fields(d, "cross_attn", lm.ATTN),
                        "mlp": lm._fields(d, "mlp", lm.MLP_W),
                        "ln1": d(lambda m: m.ln1),
                        "ln_x": d(lambda m: m.ln_x),
                        "ln2": d(lambda m: m.ln2)},
-        "final_norm": lm.to_host(params.final_norm),
-        "unembed": lm.to_host(params.unembed)}
+        "final_norm": draw(params.final_norm),
+        "unembed": draw(params.unembed)}
+
+
+def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every parameter, in :func:`params_to_numpy`'s
+    tree (the reference's ``encdec_specs``)."""
+    n = ("embed",) if cfg.parametric_norm else None
+    a, m = L.attention_specs(cfg), L.mlp_specs(cfg)
+    return {
+        "embed": ("vocab", None),
+        "enc_blocks": stack_specs({"ln1": n, "attn": a, "ln2": n, "mlp": m}),
+        "enc_norm": n,
+        "dec_blocks": stack_specs({"ln1": n, "self_attn": a, "ln_x": n,
+                                   "cross_attn": a, "ln2": n, "mlp": m}),
+        "final_norm": n,
+        "unembed": (None, "vocab"),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -160,11 +180,14 @@ def encode(params: EncDec, cfg: ModelConfig, be: Policy, src_embeds):
     states (B, S_src, d) in the compute dtype: non-causal self-attention,
     q and k roped at ``arange(S_src)``."""
     x = src_embeds.to(cfg.compute_dtype)
-    for blk in params.enc_blocks:
+
+    def body(x, blk):
         h = rmsnorm(x, blk.ln1, cfg.norm_eps)
         x = x + L.attention(blk.attn, h, be, cfg, causal=False)[0]
         h = rmsnorm(x, blk.ln2, cfg.norm_eps)
-        x = x + L.mlp(blk.mlp, h, be)
+        return x + L.mlp(blk.mlp, h, be)
+    for blk in params.enc_blocks:
+        x = remat(cfg, body, x, blk)
     return rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
@@ -201,9 +224,13 @@ def _decode_prompt(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
     enc = encode(params, cfg, be, src_embeds)
     x = params.embed[tokens].to(cfg.compute_dtype)
     S = x.shape[1]
-    for i, blk in enumerate(params.dec_blocks):
+
+    def body(x, blk):
         ck, cv = _cross_kv(blk, enc, cfg, be)
         x, (k, v) = _dec_block(blk, x, (ck, cv), cfg, be)
+        return x, k, v, ck, cv
+    for i, blk in enumerate(params.dec_blocks):
+        x, k, v, ck, cv = remat(cfg, body, x, blk)
         if cache is not None:
             cache.self_k[i, :, :, :S] = k
             cache.self_v[i, :, :, :S] = v

@@ -26,6 +26,25 @@ from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ref
 from repro_torch.models.common import mm, rope
+from repro_torch.parallel.ctx import constrain, moe_shard_count
+
+
+def attention_specs(cfg: ModelConfig):
+    """Logical axes of one attention layer's weights (the reference's)."""
+    return {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+
+
+def mlp_specs(cfg: ModelConfig):
+    return {"wg": ("embed", "mlp"), "wu": ("embed", "mlp"),
+            "wd": ("mlp", "embed")}
+
+
+def moe_specs(cfg: ModelConfig):
+    return {"router": ("embed", None),
+            "w_gate": ("experts", "embed", "expert_mlp"),
+            "w_up": ("experts", "embed", "expert_mlp"),
+            "w_down": ("experts", "expert_mlp", "embed")}
 
 
 def _split_heads(x, n, hd):
@@ -177,8 +196,11 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
         y = _full_attn(q, k, v, be, causal=False, window=None, q_offset=0,
                        scale=scale)
         return mm(_merge_heads(y), p.wo, be)
-    k = _split_heads(mm(x, p.wk, be), Hkv, hd)
-    v = _split_heads(mm(x, p.wv, be), Hkv, hd)
+    q = constrain(q, "batch", "heads", None, None)
+    k = constrain(_split_heads(mm(x, p.wk, be), Hkv, hd),
+                  "batch", "kv", None, None)
+    v = constrain(_split_heads(mm(x, p.wv, be), Hkv, hd),
+                  "batch", "kv", None, None)
     if paged_kv is not None:
         k_pool, v_pool, bt, qpos, decode_from = paged_kv
         BS = k_pool.shape[2]
@@ -218,13 +240,13 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
 def mlp(p, x, be: Policy):
     """Gated MLP (SwiGLU)."""
     h = F.silu(mm(x, p.wg, be)) * mm(x, p.wu, be)
+    h = constrain(h, "batch", None, "mlp")
     return mm(h, p.wd, be)
 
 
 # --------------------------------------------------------------------------
-# MoE: top-k routing, sort-based capacity dispatch, grouped small GEMM.
-# Only the reference's single-shard branch is ported; the per-data-shard
-# vmapped branch waits for ``parallel/``.
+# MoE: top-k routing, sort-based capacity dispatch, grouped small GEMM;
+# one dispatch group, or one per data shard (``moe_shard_count``).
 # --------------------------------------------------------------------------
 
 def init_moe(cfg: ModelConfig, ninit):
@@ -255,80 +277,115 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _moe_dispatch(router, xf, cfg: ModelConfig, C: int):
-    """Route + sort + capacity for one token shard.  xf: (T, d).
+def _moe_dispatch_groups(router, xg, cfg: ModelConfig, C: int):
+    """Route + sort + capacity for G token shards at once.  xg: (G, T, d).
 
-    Returns (buf (E, C, d), combine metadata, aux).  Each kept (token,
-    expert) pair gets slot ``e * C + rank``; a pair past its expert's
-    capacity goes to the sink index ``E * C``.  The reference's scatters
-    with ``mode="drop"`` write duplicates only to the sink, which both
-    packages discard, so plain ``index_put_`` into an ``E*C + 1`` buffer
-    is the same map."""
+    Returns (buf (G, E, C, d), (slots (G, T*k), top_p (G, T, k)), aux
+    (G,)): each group's dispatch is the reference's ``_moe_dispatch`` on
+    its own tokens (the reference vmaps it; here every op takes the group
+    dim).  Each kept (token, expert) pair gets slot ``e * C + rank``; a
+    pair past its expert's capacity goes to the sink index ``E * C``.
+    The reference's scatters with ``mode="drop"`` write duplicates only
+    to the sink, which both packages discard, so a plain scatter into an
+    ``E*C + 1`` row is the same map.  Counts are a scatter-add, so the
+    dispatch also runs on the meta device (the dry run)."""
     m = cfg.moe
-    T, d = xf.shape
+    G, T, d = xg.shape
     E, k = m.num_experts, m.top_k
-    dev = xf.device
+    dev = xg.device
 
     # the router stays f32 (an f32 matmul, TF32 off): not a routed GEMM
-    logits = torch.matmul(xf.float(), router)                     # (T, E)
+    logits = torch.matmul(xg.reshape(G * T, d).float(), router)   # (GT, E)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, k)                               # (T, k)
+    top_p, top_e = _top_k(probs, k)                               # (GT, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    logits, probs = logits.reshape(G, T, E), probs.reshape(G, T, E)
 
-    flat_e = top_e.reshape(-1)                                    # (T*k,)
-    order = torch.argsort(flat_e, stable=True)
-    se = flat_e[order]
+    flat_e = top_e.reshape(G, T * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = torch.gather(flat_e, 1, order)
     stok = torch.div(torch.arange(T * k, device=dev), k,
                      rounding_mode="floor")[order]
-    counts = torch.bincount(flat_e, minlength=E)                  # (E,)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(T * k, device=dev) - starts[se]
+    counts = torch.zeros((G, E), dtype=torch.long, device=dev).scatter_add_(
+        1, flat_e, torch.ones_like(flat_e))                       # (G, E)
+    starts = torch.cumsum(counts, 1) - counts
+    rank = torch.arange(T * k, device=dev) - torch.gather(starts, 1, se)
     keep = rank < C
     dest = torch.where(keep, se * C + rank, E * C)                # sink
 
-    inv = torch.zeros(E * C + 1, dtype=torch.long, device=dev)
-    inv[dest] = stok                                              # slot->token
-    filled = torch.zeros(E * C + 1, dtype=torch.bool, device=dev)
-    filled[dest] = keep
-    buf = torch.where(filled[:E * C, None], xf[inv[:E * C]], 0)
-    slot_flat = torch.empty(T * k, dtype=torch.long, device=dev)
-    slot_flat[order] = dest                                       # (T*k,)
+    inv = torch.zeros((G, E * C + 1), dtype=torch.long, device=dev) \
+        .scatter_(1, dest, stok)                                  # slot->token
+    filled = torch.zeros((G, E * C + 1), dtype=torch.bool, device=dev) \
+        .scatter_(1, dest, keep)
+    gi = torch.arange(G, device=dev)[:, None]
+    buf = torch.where(filled[:, :E * C, None], xg[gi, inv[:, :E * C]], 0)
+    slot_flat = torch.empty((G, T * k), dtype=torch.long, device=dev) \
+        .scatter_(1, order, dest)                                 # (G, T*k)
 
-    me = probs.mean(0)                                            # (E,)
-    ce = (counts / torch.clamp(counts.sum(), min=1)).float()
-    aux = m.aux_loss * E * torch.sum(me * ce) \
-        + m.router_z_loss * torch.mean(torch.logsumexp(logits, -1) ** 2)
-    return buf.reshape(E, C, d), (slot_flat, top_p), aux
+    me = probs.mean(1)                                            # (G, E)
+    ce = (counts / torch.clamp(counts.sum(-1, keepdim=True), min=1)).float()
+    aux = m.aux_loss * E * torch.sum(me * ce, -1) \
+        + m.router_z_loss * torch.mean(torch.logsumexp(logits, -1) ** 2, -1)
+    return (buf.reshape(G, E, C, d), (slot_flat, top_p.reshape(G, T, k)),
+            aux)
 
 
-def _moe_combine(out_buf, meta, T: int, k: int):
-    """Per-token gather of its k expert rows; a dropped pair (slot
-    ``E*C``) reads the one zero row padded after the buffer (the
-    reference's ``mode="fill"``).  The weighted sum takes bf16 products
-    in f32 and rounds once to the buffer's dtype."""
+def _moe_dispatch(router, xf, cfg: ModelConfig, C: int):
+    """One token shard's dispatch, xf: (T, d) -> (buf (E, C, d), (slots
+    (T*k,), top_p (T, k)), aux): :func:`_moe_dispatch_groups` at G = 1."""
+    buf, (slot, top_p), aux = _moe_dispatch_groups(router, xf[None], cfg, C)
+    return buf[0], (slot[0], top_p[0]), aux[0]
+
+
+def _moe_combine_groups(out_buf, meta, T: int, k: int):
+    """Per-token gather of its k expert rows, G groups at once (out_buf
+    (G, E, C, d) -> (G, T, d)); a dropped pair (slot ``E*C``) reads the one
+    zero row padded after each group's buffer (the reference's
+    ``mode="fill"``).  The weighted sum takes bf16 products in f32 and
+    rounds once to the buffer's dtype."""
     slot_flat, top_p = meta
-    E, C, d = out_buf.shape
-    flat = torch.cat([out_buf.reshape(E * C, d), out_buf.new_zeros(1, d)])
-    rows = flat[slot_flat].reshape(T, k, d)
-    return _f32_einsum("tkd,tk->td", rows,
+    G, E, C, d = out_buf.shape
+    flat = torch.cat([out_buf.reshape(G, E * C, d),
+                      out_buf.new_zeros(G, 1, d)], 1)
+    gi = torch.arange(G, device=out_buf.device)[:, None]
+    rows = flat[gi, slot_flat].reshape(G, T, k, d)
+    return _f32_einsum("gtkd,gtk->gtd", rows,
                        top_p.to(rows.dtype)).to(rows.dtype)
 
 
-def _expert_ffn(p, buf, be: Policy, x_dtype):
-    """(E, C, d) @ experts: grouped small GEMMs (the paper's habitat).
+def _moe_combine(out_buf, meta, T: int, k: int):
+    """One shard's combine, out_buf (E, C, d) -> (T, d)."""
+    slot_flat, top_p = meta
+    return _moe_combine_groups(out_buf[None], (slot_flat[None],
+                                               top_p[None]), T, k)[0]
 
-    When the policy's non-GEMM family is the kernel (``be.use_kernels``)
-    each grouped product routes through ``api.batched_gemm``, so the per-group
-    (C, K, N) problem gets the same input-aware treatment as the 2-D path
-    (the reference's plain einsum when the router declines the kernel);
-    the library family runs the einsums directly.  The weights are stored in
-    the compute dtype already, so the reference's cast is a no-op here.
+
+def _expert_ffn(p, buf, be: Policy, x_dtype):
+    """(…, E, C, d) @ experts: grouped small GEMMs (the paper's habitat).
+
+    The 3-D (one shard) case: when the policy's non-GEMM family is the
+    kernel (``be.use_kernels``) each grouped product routes through
+    ``api.batched_gemm``, so the per-group (C, K, N) problem gets the same
+    input-aware treatment as the 2-D path (the reference's plain einsum
+    when the router declines the kernel); the library family runs the
+    einsums directly.  The 4-D (G, E, C, d) case of the per-shard branch
+    is the library einsum under every policy, with the reference's
+    layout constraints, as the reference's 4-D case.  The weights are
+    stored in the compute dtype already, so the reference's cast is a
+    no-op here.
 
     The gate ``silu(g) * u`` is taken in f32 and rounded once: under
     ``jit`` XLA fuses the reference's elementwise chain and keeps its
     bf16 intermediates in f32 (excess precision), so one rounding is what
     the reference's serving step computes."""
     wg, wu, wd = (w.to(x_dtype) for w in (p.w_gate, p.w_up, p.w_down))
+    if buf.ndim == 4:
+        g = torch.einsum("gecd,edf->gecf", buf, wg)
+        u = torch.einsum("gecd,edf->gecf", buf, wu)
+        h = constrain((F.silu(g.float()) * u.float()).to(g.dtype),
+                      "moe_group", "experts", None, "expert_mlp")
+        return constrain(torch.einsum("gecf,efd->gecd", h, wd),
+                         "moe_group", "experts", None, None)
     if be.use_kernels:
         def gmm(a, w):
             return api.batched_gemm(a, w, policy=be)
@@ -341,14 +398,34 @@ def _expert_ffn(p, buf, be: Policy, x_dtype):
 
 
 def moe(p, x, be: Policy, cfg: ModelConfig):
-    """x: (B, S, d) -> (y, aux): one shard's dispatch over all B*S tokens
-    (padding rows included: they route and take capacity, as in the
-    reference), the expert FFN, the combine."""
+    """x: (B, S, d) -> (y, aux).
+
+    One dispatch over all B*S tokens (padding rows included: they route
+    and take capacity, as in the reference), the expert FFN, the combine;
+    or, where the activation context asks for G = ``moe_shard_count()`` >
+    1 dispatch groups and T = B*S splits into G shards of a multiple of 8
+    tokens (the reference's guard), the per-data-shard branch: each
+    shard routes its T/G tokens at its own capacity, the expert FFN runs
+    on the (G, E, C, d) buffer, each shard combines its own tokens, and
+    aux is the shards' mean."""
     m = cfg.moe
     B, S, d = x.shape
-    T = B * S
-    buf, meta, aux = _moe_dispatch(p.router, x.reshape(T, d), cfg,
-                                   _capacity(T, m))
+    T, k = B * S, m.top_k
+    G = moe_shard_count()
+    if G <= 1 or T % G or (T // G) % 8:
+        buf, meta, aux = _moe_dispatch(p.router, x.reshape(T, d), cfg,
+                                       _capacity(T, m))
+        out_buf = _expert_ffn(p, buf, be, x.dtype)
+        y = _moe_combine(out_buf, meta, T, k)
+        return y.to(x.dtype).reshape(B, S, d), aux
+    T_loc = T // G
+    xg = constrain(x.reshape(G, T_loc, d), "moe_group", None, None)
+    buf, (slot, top_p), aux = _moe_dispatch_groups(p.router, xg, cfg,
+                                                   _capacity(T_loc, m))
+    buf = constrain(buf, "moe_group", "experts", None, None)
+    slot = constrain(slot, "moe_group", None)
+    top_p = constrain(top_p, "moe_group", None, None)
     out_buf = _expert_ffn(p, buf, be, x.dtype)
-    y = _moe_combine(out_buf, meta, T, m.top_k)
-    return y.to(x.dtype).reshape(B, S, d), aux
+    yg = constrain(_moe_combine_groups(out_buf, (slot, top_p), T_loc, k),
+                   "moe_group", None, None)
+    return yg.to(x.dtype).reshape(B, S, d), aux.mean()

@@ -46,7 +46,8 @@ from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.common import mm, rmsnorm
+from repro_torch.models.common import mm, remat, rmsnorm, stack_specs
+from repro_torch.parallel.ctx import constrain
 
 
 def _frozen(t: Optional[torch.Tensor]) -> Optional[nn.Parameter]:
@@ -293,14 +294,19 @@ def to_host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return t.to("cpu", copy=True).numpy()
 
 
-def _stacked(mods):
-    """``leaf(get)``: ``get(m)`` of every module ``m`` of ``mods`` stacked
-    on axis 0 as numpy (the reference's layer stack), None where absent;
-    shared with ``encdec.params_to_numpy``."""
+#: how :func:`params_to_numpy` draws a leaf and stacks a layer stack
+NUMPY = (to_host, np.stack)
+
+
+def _stacked(mods, form=NUMPY):
+    """``leaf(get)``: ``get(m)`` of every module ``m`` of ``mods``, drawn
+    and stacked on axis 0 by ``form`` = (draw, stack) (the reference's
+    layer stack), None where absent; shared with ``encdec``."""
+    draw, stack = form
+
     def leaf(get):
         vals = [get(m) for m in mods]
-        return None if vals[0] is None else np.stack([to_host(v)
-                                                      for v in vals])
+        return None if vals[0] is None else stack([draw(v) for v in vals])
     return leaf
 
 
@@ -320,26 +326,59 @@ def _block_tree(leaf, blk: Block) -> Dict[str, Any]:
     return t
 
 
-def params_to_numpy(params: DenseLM, cfg: ModelConfig) -> Dict[str, Any]:
+def params_to_numpy(params: DenseLM, cfg: ModelConfig,
+                    form=NUMPY) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the module as the JAX
     package's tree (nested dict of numpy arrays, layers stacked on axis 0,
     ``None`` for absent norms, attention weights in their padded shapes,
-    the hybrid's ``shared`` block unstacked); bf16 leaves widen to f32."""
+    the hybrid's ``shared`` block unstacked); bf16 leaves widen to f32.
+    ``form`` = (draw, stack) draws the leaves otherwise
+    (``common.STRUCTS``: shapes and dtypes, no storage)."""
     _check_family(cfg)
-    leaf = _stacked(params.blocks)
+    draw = form[0]
+    leaf = _stacked(params.blocks, form)
     if _recurrent(cfg):
         blocks = {"ln1": leaf(lambda m: m.ln1),
                   "mixer": _fields(leaf, "mixer", SSM.PARAMS)}
     else:
         blocks = _block_tree(leaf, params.blocks[0])
-    tree = {"embed": to_host(params.embed), "blocks": blocks,
-            "final_norm": to_host(params.final_norm)}
+    tree = {"embed": draw(params.embed), "blocks": blocks,
+            "final_norm": draw(params.final_norm)}
     if not cfg.tie_embeddings:
-        tree["unembed"] = to_host(params.unembed)
+        tree["unembed"] = draw(params.unembed)
     if cfg.shared_attn_every:
-        tree["shared"] = _block_tree(lambda get: to_host(get(params.shared)),
+        tree["shared"] = _block_tree(lambda get: draw(get(params.shared)),
                                      params.shared)
     return tree
+
+
+def _block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    n = ("embed",) if cfg.parametric_norm else None
+    if _recurrent(cfg):
+        return {"ln1": n, "mixer": SSM.mamba_specs(cfg)}
+    sp = {"ln1": n, "attn": L.attention_specs(cfg), "ln2": n}
+    if cfg.family == "moe":
+        sp["moe"] = L.moe_specs(cfg)
+    else:
+        sp["mlp"] = L.mlp_specs(cfg)
+    return sp
+
+
+def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of every parameter, in :func:`params_to_numpy`'s
+    tree (the reference's ``lm_specs``): a leading "layers" on stacked
+    leaves, None for an absent norm.  embed and unembed shard only their
+    vocab dim, as the reference's do."""
+    n = ("embed",) if cfg.parametric_norm else None
+    specs: Dict[str, Any] = {"embed": ("vocab", None),
+                             "blocks": stack_specs(_block_specs(cfg)),
+                             "final_norm": n}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = (None, "vocab")
+    if cfg.shared_attn_every:
+        specs["shared"] = {"ln1": n, "attn": L.attention_specs(cfg),
+                           "ln2": n, "mlp": L.mlp_specs(cfg)}
+    return specs
 
 
 # --------------------------------------------------------------------------
@@ -353,7 +392,7 @@ def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens,
     x = params.embed[tokens].to(cfg.compute_dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
-    return x
+    return constrain(x, "batch", None, None)
 
 
 def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
@@ -420,17 +459,24 @@ def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     families)).  Every attention layer attends the whole sequence
     causally with its own window (through the flash kernel under every
     policy but the forced library), and every mamba layer runs the SSD
-    kernel once over it."""
+    kernel once over it.  Where autograd records, each layer (a hybrid's
+    with the shared block applied before it) is checkpointed as
+    ``cfg.remat`` says (``common.remat``): under ``"full"`` its forward
+    runs again in the backward pass, kernels included."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if _recurrent(cfg):
-        for i, blk in enumerate(params.blocks):
+        def body(x, blk, i):
             if _shared_app(cfg, i) is not None:
                 x, _, _ = _apply_attn_block(params.shared, x, be, cfg, i)
-            x, _ = _apply_mamba_block(blk, x, be, cfg)
-    else:
+            return _apply_mamba_block(blk, x, be, cfg)[0]
         for i, blk in enumerate(params.blocks):
-            x, a, _ = _apply_attn_block(blk, x, be, cfg, i)
+            x = remat(cfg, body, x, blk, i)
+    else:
+        def body(x, blk, i):
+            return _apply_attn_block(blk, x, be, cfg, i)[:2]
+        for i, blk in enumerate(params.blocks):
+            x, a = remat(cfg, body, x, blk, i)
             aux = aux + a
         aux = aux / cfg.n_layers
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)

@@ -17,6 +17,9 @@ from repro_torch.models import encdec, lm
 class Model:
     cfg: ModelConfig
     init: Callable                    # (generator, device, dtype) -> params
+    specs: Callable
+    # ^ () -> the logical axes of every parameter, in params_to_numpy's
+    #   tree (parallel/rules.py reads it)
     forward_train: Callable
     # ^ (params, tokens, be, prefix_embeds=None) -> (logits, aux);
     #   enc-dec: (params, tokens, be, src_embeds)
@@ -57,7 +60,8 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         return encdec.init_cache(cfg, batch, seq_len, src_len or seq_len,
                                  dtype, prefill_len=seq_len, device=device)
 
-    return Model(cfg, init, fwd, pf, dec, mk_cache)
+    return Model(cfg, init, lambda: encdec.encdec_specs(cfg), fwd, pf,
+                 dec, mk_cache)
 
 
 def build(cfg: ModelConfig) -> Model:
@@ -95,4 +99,5 @@ def build(cfg: ModelConfig) -> Model:
         return lm.init_paged_state(cfg, num_blocks, block_size, slots,
                                    dtype, device)
 
-    return Model(cfg, init, fwd, pf, dec, mk_cache, ppf, pdec, mk_ps)
+    return Model(cfg, init, lambda: lm.lm_specs(cfg), fwd, pf, dec,
+                 mk_cache, ppf, pdec, mk_ps)

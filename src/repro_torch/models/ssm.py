@@ -34,6 +34,7 @@ from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref, ssd
 from repro_torch.models.common import mm, rmsnorm
+from repro_torch.parallel.ctx import constrain
 
 #: parameter names of one mamba mixer, in the reference's tree order
 PARAMS = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_w",
@@ -49,6 +50,14 @@ class Mamba(nn.Module):
         super().__init__()
         for k in PARAMS:
             setattr(self, k, nn.Parameter(tensors[k], requires_grad=False))
+
+
+def mamba_specs(cfg: ModelConfig):
+    """Logical axes of one mixer's parameters (the reference's)."""
+    return {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "conv_b": ("inner",), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+            "norm_w": ("inner",), "out_proj": ("inner", "embed")}
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -135,12 +144,15 @@ def mamba(p: Mamba, x, be: Policy, cfg: ModelConfig,
     z, xs, Bm, Cm, dt = _project(p, x, cfg, be)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     A = -torch.exp(p.A_log)
-    conv_out = _silu(_causal_conv(conv_in, p.conv_w, p.conv_b))
+    conv_out = constrain(_silu(_causal_conv(conv_in, p.conv_w, p.conv_b)),
+                         "batch", None, "inner")
     # views into conv_out, no copies: the SSD kernel reads their strides
-    xs_c = conv_out[..., :di].reshape(B, S, nh, P)
+    xs_c = constrain(conv_out[..., :di].reshape(B, S, nh, P),
+                     "batch", None, "ssm_heads", None)
     B_c = conv_out[..., di:di + N].reshape(B, S, 1, N)
     C_c = conv_out[..., di + N:].reshape(B, S, 1, N)
-    dt_c = torch.nn.functional.softplus(dt.float() + p.dt_bias)
+    dt_c = constrain(torch.nn.functional.softplus(dt.float() + p.dt_bias),
+                     "batch", None, "ssm_heads")
     if be.use_kernels:
         y = ssd.ssd_scan(xs_c, dt_c, A, B_c, C_c, chunk=s.chunk)
         y = y.float() + p.D[None, None, :, None] * xs_c.float()

@@ -46,6 +46,14 @@ def init_train_state(model: Model, generator: torch.Generator,
     return {"params": params, "opt": opt.init_opt_state(params), "step": 0}
 
 
+def train_state_specs(model: Model) -> Dict[str, Any]:
+    """The logical axes of a train state, in :func:`state_to_numpy`'s tree
+    (the reference's ``train_state_specs``): the parameters' specs for
+    the master and both moments, () for the step."""
+    ps = model.specs()
+    return {"params": ps, "opt": {"m": ps, "v": ps}, "step": ()}
+
+
 def _xent(logits, labels, vocab: int, z_loss: float):
     """Masked cross-entropy in f32 + z-loss; labels == -1 are ignored.  The
     logsumexp runs over the padded vocabulary, as the reference's."""
