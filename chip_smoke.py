@@ -280,7 +280,25 @@ fails the run:
             card, the step counter's matmul FLOPs of one train step on
             meta equal to the same counter's around a real step on the
             card, and the real step's time beside the roofline's step_s
-            (printed; run after phase 41).
+            (printed; run after phase 41); its train cells run the
+            sharded step under a fake process group and count one rank's
+            work and its collectives;
+44. mesh train — NCCL with two ranks on the one card must refuse
+            ("Duplicate GPU detected", printed); then two ranks spawned
+            on cuda:0 over gloo (its all-gather of CUDA tensors staged
+            through pinned host memory: staged_all_gather, its calls and
+            bytes printed) train olmo-1b at full width and depth, B 4 x
+            S 64, 3 steps from one seeded state under ``auto``, on the
+            1 x 2 mesh (heads, mlp and vocab on model) and the 2 x 1 mesh
+            (embed on data, the batch split), f32 and bf16; rank 0 then
+            runs the one-rank steps on the card: f32 step-1 gradients per
+            leaf within MESH_GRAD_TOL of the one-rank gradient's max |g|,
+            f32 losses within MESH_LOSS_TOL, bf16 losses within
+            MESH_BF16_TOL; IAAT launches in every step of every rank,
+            each rank's local shapes printed and the kernel held against
+            its plain version at each of them (added to
+            ``slice_shapes``), step seconds, peak memory (run after
+            phase 39).
 Phase 37 also prints the share of outputs of the IAAT kernel equal to
 the bit to torch.matmul's at the train step's GEMM shapes (a reading,
 not a check).
@@ -4761,6 +4779,290 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
     return out
 
 
+#: the mesh train phase: olmo-1b at full width and depth on two ranks of
+#: the one card (1 x 2: heads, mlp and vocab on model; 2 x 1: embed on
+#: data, the batch split), B x S tokens, steps from one seeded state
+MESH_B, MESH_S, MESH_STEPS = 4, 64, 3
+MESH_SHAPES = ((1, 2), (2, 1))
+#: against the one-rank step on the card from the same state and batch:
+#: f32 step-1 gradients per leaf within MESH_GRAD_TOL of the one-rank
+#: gradient's max |g| (the same products summed in other orders: the
+#: local GEMMs' K splits, the gathered and reduced shards), f32 losses
+#: within MESH_LOSS_TOL relative, bf16 losses within the reference
+#: test's 5e-2 (tests/test_distributed.py)
+MESH_GRAD_TOL, MESH_LOSS_TOL, MESH_BF16_TOL = 1e-5, 1e-4, 5e-2
+#: the staged all-gather's calls and bytes on this rank
+_STAGED = {"calls": 0, "bytes": 0}
+
+
+def _staged_all_gather(torch):
+    """Gloo's functional all-gather of a CUDA tensor kills the process on
+    torch 2.11 (SIGSEGV; gloo's eager all_gather_into_tensor, its
+    functional all-reduce and reduce-scatter and every collective on CPU
+    tensors work): in this phase's ranks, and only here, the CUDA kernel
+    of ``_c10d_functional::all_gather_into_tensor`` (DTensor's Shard ->
+    Replicate) copies its input to pinned host memory, gathers there with
+    gloo and copies the result back to the card.  The compute stays on
+    the card.  Returns the library object that keeps it registered."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+
+    def staged_all_gather(inp, group_size, group_name):
+        host = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=True)
+        host.copy_(inp)
+        out = torch.empty((group_size * inp.shape[0],) + tuple(inp.shape[1:]),
+                          dtype=inp.dtype, pin_memory=True)
+        dist.all_gather_into_tensor(out, host,
+                                    group=_resolve_process_group(group_name))
+        _STAGED["calls"] += 1
+        _STAGED["bytes"] += out.numel() * out.element_size()
+        return out.to(inp.device)
+    lib.impl("all_gather_into_tensor", staged_all_gather, "CUDA")
+    return lib
+
+
+def _nccl_rank(rank, world):
+    import torch
+    import torch.distributed as dist
+    x = torch.ones(4, device="cuda")
+    try:
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return "ok"
+    except Exception as e:                           # noqa: BLE001
+        return repr(e)
+
+
+def _mesh_tokens(cfg):
+    """The phase's global batch (numpy, seeded): the one-rank step reads
+    it whole, each rank its own rows."""
+    from repro_torch.train import data as D
+    return D.SyntheticTokens(cfg.vocab, MESH_S, MESH_B, seed=3).batch(0)
+
+
+def _mesh_grads(torch, model, tc, pol, st, batch, keep):
+    """The step-1 gradients of every leaf, gathered whole and copied to
+    the host where ``keep`` (rank 0; the gather is a collective)."""
+    from repro_torch.parallel import spmd
+    from repro_torch.train import loop as TL
+    pc = TL.cast_params_for_compute(st["params"], model.cfg)
+    loss, _ = TL.make_loss_fn(model, tc, pol)(pc, batch)
+    names, leaves = zip(*pc.named_parameters())
+    out = {}
+    for n, g in zip(names, torch.autograd.grad(loss, leaves)):
+        g = g.full_tensor() if spmd.is_dtensor(g) else g
+        if keep:
+            out[n] = g.float().cpu()
+    return out
+
+
+def _kernel_shapes():
+    """{"MxKxN": calls} of the matmuls the router sent to the IAAT kernel
+    since its last reset (``obs.ROUTES``: each rank's local shapes)."""
+    from repro_torch import obs
+    out = {}
+    for key, h in obs.ROUTES.hits.items():
+        if key[0] == "matmul" and h[3].use_kernel:
+            dims = key[3]
+            mk = f"{math.prod(dims[:-2])}x{dims[-2]}x{dims[-1]}"
+            out[mk] = out.get(mk, 0) + h[0]
+    return out
+
+
+def _mesh_run(torch, cfg, mesh, tokens, pol, with_grads):
+    """MESH_STEPS steps of ``cfg`` on ``mesh`` (a DeviceMesh, or None for
+    one rank) from the seeded state: losses, step seconds, IAAT launches
+    a step, the kernel's local shapes, and (``with_grads``) the step-1
+    gradients (kept on rank 0)."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.models import registry
+    from repro_torch.parallel import rules as R, spmd
+    from repro_torch.parallel.ctx import activation_axes, activation_sharding
+    from repro_torch.train import data as D
+    from repro_torch.train import loop as TL
+    model = registry.build(cfg)
+    st = TL.init_train_state(
+        model, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rows, host = MESH_B, 0
+    if mesh is not None:
+        rules = R.make_rules(cfg, mesh)
+        st = rules.distribute(st, TL.train_state_specs(model))
+        dpl = R.data_shardings(cfg, ShapeConfig("m", MESH_S, MESH_B,
+                                                "train"), mesh, rules)
+        host, hosts = spmd.shard_coordinate(mesh, dpl["tokens"])
+        rows = MESH_B // hosts
+    _free(torch)
+    batch = {k: torch.from_numpy(v[host * rows:(host + 1) * rows]).long()
+             .to("cuda") for k, v in tokens.items()}
+    if mesh is not None:
+        batch = D.make_global_batch(batch, mesh, dpl)
+        ctx = activation_sharding(mesh, activation_axes(
+            cfg, mesh, R.batch_spec(mesh, MESH_B)))
+    else:
+        ctx = contextlib.nullcontext()
+    tc = TL.TrainConfig()
+    step = TL.make_train_step(model, tc, pol)
+    keep = not dist.is_initialized() or dist.get_rank() == 0
+    out = {"losses": [], "step_s": [], "iaat": [], "shapes": {}}
+    with ctx:
+        if with_grads:
+            out["grads"] = _mesh_grads(torch, model, tc, pol, st, batch,
+                                       keep)
+        for _ in range(MESH_STEPS):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step(st, batch)
+            out["losses"].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["iaat"].append(iaat_gemm.launch_count("iaat_gemm"))
+            for k, v in _kernel_shapes().items():
+                out["shapes"][k] = out["shapes"].get(k, 0) + v
+    del st, step
+    _free(torch)
+    return out
+
+
+def _mesh_compare(torch, got, want):
+    """Rank 0's verdict on one mesh against the one-rank runs."""
+    res = {"loss_rel": max(abs(a - b) / abs(b) for a, b in zip(
+        got["float32"]["losses"], want["float32"]["losses"])),
+        "bf16_loss_rel": max(abs(a - b) / abs(b) for a, b in zip(
+            got["bfloat16"]["losses"], want["bfloat16"]["losses"]))}
+    worst, where = 0.0, None
+    for n, g in want["float32"]["grads"].items():
+        h = got["float32"]["grads"][n]
+        e = float((h - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        if e >= worst:
+            worst, where = e, n
+    res.update(grad_rel=worst, grad_worst_leaf=where)
+    res["ok"] = (res["loss_rel"] <= MESH_LOSS_TOL
+                 and res["bf16_loss_rel"] <= MESH_BF16_TOL
+                 and worst <= MESH_GRAD_TOL)
+    return res
+
+
+def _mesh_rank(rank, world, tokens):
+    """One rank of the mesh train phase: both meshes in f32 (with the
+    step-1 gradients) and bf16 under ``auto`` (the kernels without a
+    backward on the library), then, on rank 0 while rank 1 waits, the
+    one-rank runs and the verdicts; then each rank in turn holds the IAAT
+    kernel against its plain version at the local shapes it launched."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, configs
+    from repro_torch.launch import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    keep_lib = _staged_all_gather(torch)
+    pol = api.Policy(backend="auto").replace(kernels="library")
+    api.install(pol)
+    base = configs.get_config("olmo-1b")
+    cfgs = {dt: dataclasses.replace(base, dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    out = {"rank": rank, "meshes": {}}
+    for shape in MESH_SHAPES:
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"), "cuda")
+        out["meshes"][shape] = {
+            dt: _mesh_run(torch, cfgs[dt], mesh, tokens, pol,
+                          dt == "float32") for dt in cfgs}
+    out["mesh_s"] = time.perf_counter() - t_phase
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        one = {dt: _mesh_run(torch, cfgs[dt], None, tokens, pol,
+                             dt == "float32") for dt in cfgs}
+        out["one_rank"] = {dt: {k: v for k, v in r.items() if k != "grads"}
+                           for dt, r in one.items()}
+        out["verdict"] = {shape: _mesh_compare(torch, out["meshes"][shape],
+                                               one)
+                          for shape in MESH_SHAPES}
+        del one
+    for m in out["meshes"].values():
+        m["float32"].pop("grads", None)
+    dist.barrier()
+    shapes = sorted({tuple(map(int, k.split("x")))
+                     for m in out["meshes"].values()
+                     for r in m.values() for k in r["shapes"]})
+    out["rows"] = []
+    for r in range(world):                 # one rank at a time on the card
+        if r == rank:
+            for M, K, N in shapes:
+                tied = N * world == base.vocab_padded or \
+                    N == base.vocab_padded
+                out["rows"].append(_iaat_row(
+                    torch, M, K, N, tied and K == base.d_model,
+                    f"mesh train rank {rank}"))
+        dist.barrier()
+    out["staged"] = dict(_STAGED)
+    out["phase_s"] = time.perf_counter() - t_phase
+    del keep_lib
+    return out
+
+
+def phase_mesh_train(torch, cfg):
+    """olmo-1b (``cfg``) trained on two ranks of the one card, on the 1 x 2
+    and the 2 x 1 mesh, against the one-rank step from the same state:
+    see ``_mesh_rank``.  NCCL refuses two ranks on one device, which is
+    checked and printed first; gloo carries the collectives."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    _free(torch)
+    nccl = mesh_mod.spawn(_nccl_rank, 2, timeout=120, backend="nccl")[0]
+    log(f"mesh train: NCCL, two ranks on the one card: {nccl[:300]}")
+    ranks = mesh_mod.spawn(_mesh_rank, 2, _mesh_tokens(cfg), timeout=900)
+    verdict = ranks[0]["verdict"]
+    for r in ranks:
+        for shape, runs in r["meshes"].items():
+            for dt, run in runs.items():
+                log(f"mesh train rank {r['rank']} {shape[0]}x{shape[1]} "
+                    f"{dt}: losses {[round(x, 6) for x in run['losses']]}, "
+                    f"step s {[round(x, 4) for x in run['step_s']]}, IAAT "
+                    f"launches a step {run['iaat']}, local MxKxN: "
+                    + ", ".join(f"{k} ({v} calls)" for k, v in
+                                sorted(run["shapes"].items())))
+        log(f"mesh train rank {r['rank']}: peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, staged_all_gather "
+            f"{r['staged']['calls']} calls {r['staged']['bytes']} bytes, "
+            f"meshes {r['mesh_s']:.1f} s, phase {r['phase_s']:.1f} s")
+    one = ranks[0]["one_rank"]
+    for dt, run in one.items():
+        log(f"mesh train one rank {dt}: losses "
+            f"{[round(x, 6) for x in run['losses']]}, step s "
+            f"{[round(x, 4) for x in run['step_s']]}, IAAT launches a step "
+            f"{run['iaat']}")
+    for shape, v in verdict.items():
+        log(f"mesh train {shape[0]}x{shape[1]} against one rank: f32 "
+            f"losses {v['loss_rel']:.3g} rel (tol {MESH_LOSS_TOL}), "
+            f"step-1 gradients {v['grad_rel']:.3g} of max|g| (worst "
+            f"{v['grad_worst_leaf']}, tol {MESH_GRAD_TOL}), bf16 losses "
+            f"{v['bf16_loss_rel']:.3g} rel (tol {MESH_BF16_TOL})")
+    bad = [s for s, v in verdict.items() if not v["ok"]]
+    no_kernel = [(r["rank"], s, dt) for r in ranks
+                 for s, runs in r["meshes"].items()
+                 for dt, run in runs.items() if min(run["iaat"]) < 1]
+    if bad or no_kernel or "Duplicate GPU" not in nccl:
+        raise AssertionError(f"mesh train: verdicts {verdict}, no IAAT "
+                             f"launch {no_kernel}, nccl {nccl}")
+    rows = [row for r in ranks for row in r["rows"]]
+    log(f"mesh train: {time.perf_counter() - t0:.1f} s")
+    return {"ranks": [{k: v for k, v in r.items()
+                       if k not in ("meshes", "one_rank", "verdict")}
+                      for r in ranks],
+            "runs": {f"rank{r['rank']} {s[0]}x{s[1]} {dt}": run
+                     for r in ranks for s, runs in r["meshes"].items()
+                     for dt, run in runs.items()},
+            "one_rank": one,
+            "verdict": {f"{s[0]}x{s[1]}": v for s, v in verdict.items()},
+            "nccl": nccl, "rows": rows}
+
+
 def _mixtral_cfg():
     import dataclasses
     from repro_torch import configs
@@ -4840,6 +5142,8 @@ def main():
         report["ssm_train"] = timed("ssm train", phase_ssm_train, torch,
                                     scfg)
         _free(torch)
+        report["mesh_train"] = timed("mesh train", phase_mesh_train, torch,
+                                     cfg)
         grouped_err, ragged_launches = timed("grouped check",
                                              phase_grouped_check, torch, mcfg)
         report["moe_serve"], params = timed(
@@ -4946,13 +5250,16 @@ def main():
         # the same kernel at the later slices' shapes (decoder-only
         # families, then enc-dec and forward_train, then training)
         more = slice_rows.get(e["name"], []) + encdec_rows.get(
-            e["name"], []) + train_rows.get(e["name"], [])
+            e["name"], []) + train_rows.get(e["name"], []) + (
+            report["mesh_train"]["rows"] if e["name"] == "iaat_gemm"
+            else [])
         if more:
             e["slice_shapes"] = more
     report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows \
         + [r for rs in slice_rows.values() for r in rs] \
         + [r for rs in encdec_rows.values() for r in rs] \
-        + [r for rs in train_rows.values() for r in rs]
+        + [r for rs in train_rows.values() for r in rs] \
+        + report["mesh_train"]["rows"]
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -40,6 +41,7 @@ from repro_torch import obs
 from repro_torch.core import (cost, kernelgen, paper_table, plan as plan_mod,
                               templates)
 from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.parallel import spmd
 
 #: Cube edge at which a bf16 GEMM on an H100 turns from bytes-bound to
 #: operations-bound: a cube n^3 moves 8n^2 bytes for 2n^3 flops, so its
@@ -409,7 +411,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     Leading dims of ``x`` flatten into M.  ``w`` may be any strided
     (K, N) view — the tied ``embed.T`` reaches the kernel uncopied.  This
     is the hook through which every model projection reaches the paper's
-    technique."""
+    technique.
+
+    On DTensors (a train step on several ranks) the weight is gathered
+    over the batch axes (FSDP) and this same routed GEMM runs on each
+    rank's local shards (``parallel/spmd.sharded_matmul``), so the route
+    and the kernel see the local (M, N, K)."""
+    if spmd.any_dtensor(x, w):
+        return spmd.sharded_matmul(x, w, functools.partial(
+            matmul, policy=policy))
     pol = _resolve(policy)
     if not pol.iaat:
         return torch.matmul(x, w)

@@ -1,6 +1,6 @@
 """The dry run: every (architecture x input shape x mesh) cell at full
-width and depth on the meta device, with no process group and no CUDA
-(counterpart of ``repro/launch/dryrun.py``).
+width and depth on the meta device, with no CUDA (counterpart of
+``repro/launch/dryrun.py``).
 
 Each cell builds the parameters, the optimizer state, the cache and the
 batch on the meta device (shapes and dtypes, no storage), runs the
@@ -19,10 +19,17 @@ the production mesh, and reports:
     estimated (None).
   * ``analyzer``: the step's matmul FLOPs and operand + output bytes,
     counted per aten op (``step_analyzer.StepCounter``), and
-    ``roofline`` (``step_stats.Roofline``) on them.  Per-device FLOPs
-    and bytes are the global count / devices: an ideal split, which does
-    not charge the work a rule's fallback replicates (per-rank counts
-    come with running on several ranks, ROADMAP §1 item 6).
+    ``roofline`` (``step_stats.Roofline``) on them.  A train cell runs
+    as a real sharded step: a fake process group of the mesh's size
+    comes up in this process (:func:`fake_world`, torn down after the
+    cell), the state and the batch are meta DTensors laid out by the
+    rules, and the counter counts rank 0's local ops, so the FLOPs and
+    bytes are one rank's, the work a rule's fallback replicates
+    included, and the collectives DTensor issues are counted by kind
+    with their bytes (``coll_bytes``, ``collective_s``).  A prefill or
+    decode cell runs on one rank, as the port serves (the reference's
+    serve launcher has no mesh): its per-device counts are the global
+    count / devices, an ideal split, with no collectives.
   * ``model_flops_per_dev``: the reference's 6·N·D (2·N·D to serve).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
@@ -33,6 +40,7 @@ A cell that fails is logged with its traceback and the run goes on.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -171,16 +179,61 @@ def argument_bytes(cfg, shape, mesh, *, fsdp: bool = True
     return args, port
 
 
+@contextlib.contextmanager
+def fake_world(mesh):
+    """A ``DeviceMesh`` of ``mesh``'s shape (a :class:`R.MeshShape`) over
+    a fake process group of its size in this process, as its rank 0: its
+    collectives move nothing, which meta tensors need not.  The group is
+    taken down on exit; a group already up raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up: the dry run brings up "
+                           "its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size())
+    try:
+        yield init_device_mesh("cpu", tuple(mesh.shape),
+                               mesh_dim_names=tuple(mesh.mesh_dim_names))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_train(model, shape, mesh, accum: int, counter) -> None:
+    """One train step over ``mesh`` (a MeshShape of several ranks) as a
+    real sharded step on meta DTensors, counted as rank 0's."""
+    cfg = model.cfg
+    with fake_world(mesh) as dm:
+        rules = R.make_rules(cfg, dm)
+        state = rules.distribute(
+            train_loop.init_train_state(model, torch.Generator(), "meta"),
+            train_loop.train_state_specs(model))
+        dspecs = R.data_specs(cfg, shape, dm, rules)
+        batch = {k: rules.distribute(_meta(s), dspecs[k])
+                 for k, s in input_structs(cfg, shape).items()}
+        act = activation_axes(cfg, dm, R.batch_spec(dm, shape.global_batch))
+        step = train_loop.make_train_step(
+            model, train_loop.TrainConfig(accum_steps=accum), LIBRARY)
+        with activation_sharding(dm, act), counter:
+            step(state, batch)
+
+
 def count_step(cfg, shape, mesh, *, accum: int = 1) -> StepCounter:
     """The cell's step run once on the meta device under the library
     policy and the mesh's activation context, counted per aten op: a
-    train step (``accum`` microbatches), a prefill, or one decode step
-    over a full cache."""
+    train step (``accum`` microbatches; on a mesh of several ranks a
+    sharded step, counted as rank 0's: :func:`_sharded_train`), a
+    prefill, or one decode step over a full cache (on one rank)."""
     model = build_model(cfg)
     gen = torch.Generator()
     batch = {k: _meta(s) for k, s in input_structs(cfg, shape).items()}
     act = activation_axes(cfg, mesh, R.batch_spec(mesh, shape.global_batch))
     counter = StepCounter()
+    if shape.kind == "train" and mesh.size() > 1:
+        with api.using(LIBRARY):
+            _sharded_train(model, shape, mesh, accum, counter)
+        return counter
     with api.using(LIBRARY), activation_sharding(mesh, act):
         if shape.kind == "train":
             step = train_loop.make_train_step(
@@ -224,9 +277,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
             (arch, shape_name), ACCUM.get(shape_name, 1))
     counter = count_step(cfg, shape, mesh, accum=acc or 1)
     mf = model_flops(cfg, shape) / n_dev
-    rl = step_stats.Roofline(flops=counter.flops / n_dev,
-                             hbm_bytes=counter.bytes / n_dev,
-                             model_flops=mf)
+    per_rank = shape.kind == "train" and n_dev > 1
+    if per_rank:
+        rl = step_stats.Roofline(flops=counter.flops,
+                                 hbm_bytes=counter.bytes, model_flops=mf,
+                                 coll_bytes=counter.coll_bytes)
+    else:
+        rl = step_stats.Roofline(flops=counter.flops / n_dev,
+                                 hbm_bytes=counter.bytes / n_dev,
+                                 model_flops=mf)
     ma = step_stats.memory_analysis_terms(args)
     ma["port_arguments"] = port
     rec = {
@@ -234,7 +293,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "devices": n_dev, "count_s": round(time.time() - t0, 2),
         "memory_analysis": ma, "model_flops_per_dev": mf,
         "roofline": rl.as_dict(), "analyzer": counter.as_dict(),
-        "per_device": "ideal: the global count / devices",
+        "per_device": (f"rank 0 of {n_dev}: its local ops in a sharded "
+                       "step under a fake process group") if per_rank
+        else "ideal: the global count / devices (one rank's step)",
         "rules_fallbacks": R.make_rules(cfg, mesh, fsdp=fsdp).fallbacks,
     }
     if acc is not None:

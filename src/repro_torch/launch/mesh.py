@@ -9,14 +9,24 @@ the reference's.  A ``DeviceMesh`` needs a process group of its size:
 smaller, as ``jax.make_mesh`` raises on a host without the devices.
 :func:`make_host_mesh` is the 1 x 1 mesh of one rank, which brings up a
 one-rank group if none exists (NCCL on the card, gloo on the CPU) over an
-in-process store, so no network port is opened; :func:`release_mesh`
-takes down a group it brought up.  :func:`mesh_shape` is the shape-only
-stand-in (``parallel.rules.MeshShape``) the dry run reads.
+in-process store, so no network port is opened.  A world of several
+ranks comes up from the ``torchrun`` environment (:func:`init_world`:
+NCCL with each rank on ``cuda:LOCAL_RANK``, gloo on the CPU), or, for
+tests, from :func:`spawn` (N processes over a ``FileStore`` in a
+temporary directory: no TCP port to clash between test workers).
+:func:`release_mesh` takes down a group this module brought up.
+:func:`mesh_shape` is the shape-only stand-in
+(``parallel.rules.MeshShape``) the dry run reads.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import os
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Sequence
 
 import torch
 
@@ -89,10 +99,95 @@ def make_host_mesh(device: str = "cuda"):
 
 
 def release_mesh() -> None:
-    """Take down the one-rank group :func:`make_host_mesh` brought up (a
-    group the caller brought up is left alone)."""
+    """Take down the group :func:`make_host_mesh`, :func:`init_world` or
+    :func:`spawn` brought up (a group the caller brought up is left
+    alone)."""
     import torch.distributed as dist
     if _OWNED and dist.is_initialized():
         dist.destroy_process_group()
     _OWNED.clear()
 
+
+
+def init_world(device_type: str = "cuda") -> torch.device:
+    """Bring up the process group of a ``torchrun`` world (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``):
+    NCCL on the card, each rank on ``cuda:LOCAL_RANK`` (initialised now,
+    so a failure shows here), gloo on the CPU.  Returns the rank's
+    device; :func:`release_mesh` takes the group down."""
+    import torch.distributed as dist
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if device_type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", rank=rank, world_size=world,
+                                device_id=dev)
+    else:
+        dev = torch.device("cpu")
+        dist.init_process_group("gloo", rank=rank, world_size=world)
+    _OWNED.append(True)
+    return dev
+
+
+def _spawned(rank: int, world: int, root: str, backend: str, fn, args):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = {"rank": rank}
+    try:
+        store = dist.FileStore(os.path.join(root, "store"), world)
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world)
+        _OWNED.append(True)
+        out["result"] = fn(rank, world, *args)
+    except BaseException:            # noqa: BLE001 — reported by spawn
+        out["error"] = traceback.format_exc()
+    finally:
+        release_mesh()
+    with open(os.path.join(root, f"rank{rank}.pkl.tmp"), "wb") as f:
+        pickle.dump(out, f)
+    os.replace(os.path.join(root, f"rank{rank}.pkl.tmp"),
+               os.path.join(root, f"rank{rank}.pkl"))
+
+
+def spawn(fn: Callable, world: int, *args: Any, timeout: float = 240.0,
+          backend: str = "gloo") -> List[Any]:
+    """``fn(rank, world, *args)`` in ``world`` new processes, one a rank,
+    over a process group brought up on a ``FileStore`` in a temporary
+    directory (each rank on one thread); returns the ranks' results in
+    rank order.  ``fn`` and ``args`` must pickle (``fn`` a module-level
+    function).  A rank that raises, dies or outlives ``timeout`` seconds
+    (all ranks together) raises here, after every process is stopped."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_world_") as root:
+        procs = [ctx.Process(target=_spawned,
+                             args=(r, world, root, backend, fn, args),
+                             daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.join(max(0.0, end - time.monotonic()))
+            late = [r for r, p in enumerate(procs) if p.is_alive()]
+            if late:
+                raise TimeoutError(f"ranks {late} of {world} still running "
+                                   f"after {timeout:.0f} s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        outs = []
+        for r, p in enumerate(procs):
+            path = os.path.join(root, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                raise RuntimeError(f"rank {r} exited with {p.exitcode} and "
+                                   "no result")
+            with open(path, "rb") as f:
+                outs.append(pickle.load(f))
+    errs = [o for o in outs if "error" in o]
+    if errs:
+        raise RuntimeError(f"rank {errs[0]['rank']} of {world} failed:\n"
+                           + errs[0]["error"])
+    return [o["result"] for o in outs]

@@ -14,18 +14,32 @@ ones (the card), adds
 
 The reference multiplies each HLO loop body by its trip count and
 weights ``lax.cond`` branches, because XLA prints a scanned layer once.
-Here nothing needs weighting: the layer stacks, the microbatches and the
-attention oracle's KV chunks are Python loops, so every iteration
-dispatches its own ops, and a Python ``if`` dispatches only the branch
-taken.  The IAAT, flash, grouped and SSD kernels launch through
-``ctypes`` and are not aten ops, so the counter is meant for a step under
-the library policy (``api.named_policy("library")``), as the reference's
-dry run lowers under XLA.
+Here the layer stacks, the microbatches and the attention oracle's KV
+chunks are Python loops, so every iteration dispatches its own ops, and
+a Python ``if`` dispatches only the branch taken.  One loop is weighted
+instead: the serving recurrence's token loop (``ssm.paged_step``), whose
+iterations are alike, runs its body once on meta tensors under an active
+counter, counted :func:`trip_count` times (the reference's
+``known_trip_count``), so a 32k-token prefill costs one token's ops.
+
+On several ranks the step's tensors are DTensors, which a dispatch mode
+would see with their global shapes before DTensor splits the op; the
+counter hands those ops back (``NotImplemented``), so DTensor runs them
+and the counter sees the local ops of this rank: its FLOPs and bytes are
+one rank's.  The collectives DTensor issues (``_c10d_functional``) are
+counted apart, by kind, with the bytes of their outputs on this rank
+(the reference's ``collective_bytes``), and not as memory traffic.
+
+The IAAT, flash, grouped and SSD kernels launch through ``ctypes`` and
+are not aten ops, so the counter is meant for a step under the library
+policy (``api.named_policy("library")``), as the reference's dry run
+lowers under XLA.
 """
 from __future__ import annotations
 
 import collections
-from typing import Dict
+import contextlib
+from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -49,6 +63,44 @@ def _moves_nothing(func) -> bool:
                               and not r.alias_info.is_write for r in rets)
 
 
+#: collective kinds, the reference's names, by ``_c10d_functional`` op
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "broadcast", "broadcast_": "broadcast"}
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "broadcast")
+
+_ACTIVE: List["StepCounter"] = []
+
+
+def trip_counting() -> bool:
+    """Whether the active :class:`StepCounter` weights alike loop
+    iterations by their trip count (:func:`trip_count`)."""
+    return bool(_ACTIVE) and _ACTIVE[-1].trip_counts
+
+
+@contextlib.contextmanager
+def trip_count(n: int):
+    """Every op dispatched inside counts ``n`` times in the active
+    counter (a loop body run once for ``n`` alike iterations)."""
+    c = _ACTIVE[-1]
+    prev, c.weight = c.weight, c.weight * n
+    try:
+        yield
+    finally:
+        c.weight = prev
+
+
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, type) and issubclass(t, DTensor)
+
+
 def _bytes(tree) -> int:
     leaves, _ = tree_flatten(tree)
     return sum(t.numel() * t.element_size() for t in leaves
@@ -58,32 +110,60 @@ def _bytes(tree) -> int:
 class StepCounter(TorchDispatchMode):
     """``with StepCounter() as c: step()`` -> ``c.flops`` (matmul family),
     ``c.bytes`` (operands + outputs), ``c.ops`` (aten ops seen),
-    ``c.dots`` (matmul-family ops) and ``c.flops_by_op``."""
+    ``c.dots`` (matmul-family ops), ``c.flops_by_op``, and the
+    collectives: ``c.coll_bytes`` and ``c.coll_count`` by kind (one
+    rank's, on DTensors).  ``trip_counts=False`` has the weighted loops
+    run every iteration (the same counts, one op at a time)."""
 
-    def __init__(self):
+    def __init__(self, trip_counts: bool = True):
         super().__init__()
+        self.trip_counts = trip_counts
         from torch.utils.flop_counter import flop_registry
         self._formulas = flop_registry
+        self.weight = 1
         self.flops = 0
         self.bytes = 0
         self.ops = 0
         self.dots = 0
         self.flops_by_op: Dict[str, int] = collections.Counter()
+        self.coll_bytes: Dict[str, int] = {k: 0 for k in KINDS}
+        self.coll_count: Dict[str, int] = {k: 0 for k in KINDS}
+
+    def __enter__(self):
+        _ACTIVE.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _ACTIVE.remove(self)
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(_is_dtensor_type(t) for t in types):
+            return NotImplemented        # DTensor splits it: count locals
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        self.ops += 1
-        f = self._formulas.get(func.overloadpacket)
+        w = self.weight
+        pkt = func.overloadpacket
+        if getattr(pkt, "_qualified_op_name", "").startswith(
+                "_c10d_functional::"):
+            kind = COLLECTIVES.get(pkt.__name__)
+            if kind is not None:
+                self.coll_count[kind] += w
+                self.coll_bytes[kind] += w * _bytes(out)
+            return out
+        self.ops += w
+        f = self._formulas.get(pkt)
         if f is not None:
             n = int(f(*args, **kwargs, out_val=out))
-            self.flops += n
-            self.dots += 1
-            self.flops_by_op[str(func.overloadpacket)] += n
+            self.flops += w * n
+            self.dots += w
+            self.flops_by_op[str(pkt)] += w * n
         if not _moves_nothing(func):
-            self.bytes += _bytes((args, kwargs)) + _bytes(out)
+            self.bytes += w * (_bytes((args, kwargs)) + _bytes(out))
         return out
 
     def as_dict(self) -> Dict:
         return {"flops": self.flops, "bytes": self.bytes, "ops": self.ops,
-                "dots": self.dots, "flops_by_op": dict(self.flops_by_op)}
+                "dots": self.dots, "flops_by_op": dict(self.flops_by_op),
+                "coll_bytes": dict(self.coll_bytes),
+                "coll_count": dict(self.coll_count)}

@@ -25,22 +25,35 @@ The mesh is the 1 x 1 host mesh of one rank (``launch/mesh.py``: a
 one-rank NCCL group on the card, gloo on the CPU, taken down at the
 end); the sharding rules (``parallel/rules.py``) are logged, and the
 loop runs in the activation context (``parallel/ctx.py``), as the
-reference's.  ``--production-mesh`` (``--multi-pod``) asks for the
-16 x 16 (2 x 16 x 16) mesh, which raises unless the world holds its 256
-(512) ranks; a mesh of more than one rank raises too, because running
-on several ranks is not ported (ROADMAP §1 item 6).
+reference's.  ``--production-mesh`` (``--multi-pod``) builds the
+16 x 16 (2 x 16 x 16) mesh over a ``torchrun`` world, which raises
+unless the world holds its 256 (512) ranks:
+
+    torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+        --arch olmo-1b --production-mesh --batch 256 --seq 4096
+
+On a mesh of several ranks the state is placed by the rules as DTensors
+(FSDP over ``data``, TP over ``model``, EP on ``experts``, DP over
+``pod``), each rank reads its own rows of every batch (its coordinate
+over the batch axes, as the reference reads rows per process), each
+GEMM runs on the rank's shards, checkpoints are written whole by rank 0
+and restored shard by shard, and rank 0 logs.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
+
 import torch
 
 from repro_torch import api, configs, obs
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.registry import build as build_model
 from repro_torch.parallel import rules as R
+from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import activation_axes, activation_sharding
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train import data as data_mod
@@ -94,25 +107,33 @@ def run(args) -> dict:
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
-    mesh = mesh_mod.make_production_mesh(
-        multi_pod=args.multi_pod, device_type=torch.device(device).type) \
-        if args.production_mesh else mesh_mod.make_host_mesh(device)
+    dev_type = torch.device(device).type
     try:
+        if args.production_mesh:
+            import torch.distributed as dist
+            if not dist.is_initialized() and \
+                    int(os.environ.get("WORLD_SIZE", "1")) > 1:
+                device = mesh_mod.init_world(dev_type)   # a torchrun world
+            mesh = mesh_mod.make_production_mesh(multi_pod=args.multi_pod,
+                                                 device_type=dev_type)
+        else:
+            mesh = mesh_mod.make_host_mesh(device)
         return _run(args, cfg, device, mesh)
     finally:
         mesh_mod.release_mesh()
 
 
 def _run(args, cfg, device, mesh) -> dict:
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"a mesh of {mesh.size()} ranks: training on several ranks "
-            "(state placed by the rules as DTensors) is not ported yet "
-            "(ROADMAP §1 item 6); train on the host mesh")
+    """Train on ``mesh`` (a ``DeviceMesh`` over the process group; this
+    process is one of its ranks, on ``device``)."""
+    import torch.distributed as dist
     model = build_model(cfg)
     rules = R.make_rules(cfg, mesh)
-    log.info("sharding rules on %s:\n%s", dict(R.axis_sizes(mesh)),
-             rules.report())
+    sharded = mesh.size() > 1
+    primary = not dist.is_initialized() or dist.get_rank() == 0
+    if primary:
+        log.info("sharding rules on %s:\n%s", dict(R.axis_sizes(mesh)),
+                 rules.report())
     act_axes = activation_axes(cfg, mesh, R.batch_spec(mesh, args.batch))
     # the one policy install of the run: GEMM routing as --backend says,
     # the kernels without a backward pinned to the library
@@ -125,6 +146,19 @@ def _run(args, cfg, device, mesh) -> dict:
     step_fn = train_loop.make_train_step(model, tc, be)
     data = data_mod.SyntheticTokens(cfg.vocab, args.seq, args.batch,
                                     seed=args.seed)
+    specs = train_loop.train_state_specs(model)
+    host, hosts, data_pl = 0, 1, None
+    if sharded:
+        data_pl = R.data_shardings(
+            cfg, ShapeConfig("train", args.seq, args.batch, "train"), mesh,
+            rules)
+        host, hosts = spmd.shard_coordinate(mesh, data_pl["tokens"])
+
+    def batch_at(step):
+        b = data_mod.to_device(data.batch(step, host=host, num_hosts=hosts),
+                               device)
+        return data_mod.make_global_batch(b, mesh, data_pl) if sharded \
+            else b
     ckpt = ckpt_mod.Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     monitor = fault.StepMonitor()
     metrics_out = {"history": []}
@@ -136,28 +170,31 @@ def _run(args, cfg, device, mesh) -> dict:
             ckpt.wait()          # a save still in flight counts as written
             latest = ckpt.latest_step()
             if latest is not None:
-                tree, extra = ckpt.restore()
+                tree, extra = ckpt.restore(
+                    shardings=rules.shardings(specs) if sharded else None)
                 state = train_loop.state_from_numpy(tree, cfg, device)
                 start_step = int(extra.get("data_step", latest))
                 log.info("restored step %d", start_step)
         if state is None:
             gen = torch.Generator(device=device).manual_seed(args.seed)
             state = train_loop.init_train_state(model, gen, device)
+            if sharded:
+                state = rules.distribute(state, specs)
         for step in range(start_step, args.steps):
             if step == args.inject_fault_at and attempt == 0:
                 raise fault.SimulatedFault(f"injected at step {step}")
             monitor.start()
             t0 = time.perf_counter()
             with obs.span("train.step"):
-                gb = data_mod.to_device(data.batch(step), device)
-                state, m = step_fn(state, gb)
+                state, m = step_fn(state, batch_at(step))
                 m = {k: float(v) for k, v in m.items()}   # waits for it
             dt = time.perf_counter() - t0
             monitor.stop(step)
             train_loop.record_step(step, m, dt)
             metrics_out.update(m, step=step)
             metrics_out["history"].append(dict(m, step=step, seconds=dt))
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if primary and (step % args.log_every == 0
+                            or step == args.steps - 1):
                 log.info("step %d loss %.4f gnorm %.3f lr %.2e",
                          step, m["loss"], m["grad_norm"], m["lr"])
             if ckpt and args.ckpt_every and \

@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch import api
 from repro_torch.api import Policy
+from repro_torch.parallel import spmd
 
 
 def mm(x: torch.Tensor, w: torch.Tensor,
@@ -36,6 +37,22 @@ def mm(x: torch.Tensor, w: torch.Tensor,
 
 def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
             eps: float) -> torch.Tensor:
+    """On a DTensor (several ranks) it runs on the local rows, the weight
+    gathered whole; where the last dim is sharded (a mamba mixer's heads
+    under tensor parallelism) the mean of squares is reduced over the
+    shards and the weight keeps its shard."""
+    if spmd.is_dtensor(x):
+        x = spmd.settle(x)
+        if any(q.is_shard(x.ndim - 1) for q in x.placements):
+            xf = x.float()
+            var = spmd.settle((xf * xf).sum(-1, keepdim=True)) \
+                / x.shape[-1]
+            y = xf * torch.rsqrt(var + eps)
+            if w is not None:
+                y = y * spmd.gather_fsdp(w).float()
+            return y.to(x.dtype)
+        return spmd.local(functools.partial(rmsnorm, eps=eps), x.placements,
+                          x, spmd.whole(w))
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
@@ -46,7 +63,15 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
-    """x: (B, H, S, D); positions: (B, S) or (S,)."""
+    """x: (B, H, S, D); positions: (B, S) or (S,).  On a DTensor
+    (batch and heads sharded) it runs on the local heads, ``positions``
+    (S,) the same on every rank."""
+    if spmd.is_dtensor(x):
+        if positions.ndim != 1:
+            raise ValueError("rope on a DTensor takes positions (S,)")
+        x = spmd.settle(x)
+        return spmd.local(functools.partial(rope, positions=positions,
+                                            theta=theta), x.placements, x)
     D = x.shape[-1]
     half = D // 2
     freq = theta ** (-torch.arange(0, half, dtype=torch.float32,

@@ -26,6 +26,7 @@ from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ref
 from repro_torch.models.common import mm, rope
+from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain, moe_shard_count
 
 
@@ -69,7 +70,13 @@ def _full_attn(q, k, v, be: Policy, *, causal, window, q_offset, scale):
     policy's non-GEMM family is the kernel (``be.use_kernels``, the
     reference's ``pallas``: every backend but the forced library, unless
     ``Policy.kernels`` pins it), else the chunked oracle in plain torch
-    ops."""
+    ops.  On DTensors (batch and heads sharded) it runs on each rank's
+    local heads; where q and k/v are laid out differently (a GQA whose
+    kv heads the rules replicate) both are replicated over that mesh
+    dim first."""
+    if spmd.any_dtensor(q, k, v):
+        return _sharded_attn(q, k, v, be, causal=causal, window=window,
+                             q_offset=q_offset, scale=scale)
     if be.use_kernels:
         return flash_attention.flash_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
@@ -77,6 +84,17 @@ def _full_attn(q, k, v, be: Policy, *, causal, window, q_offset, scale):
     return ref.chunked_mha(q, k, v, causal=causal, window=window,
                            q_offset=q_offset, scale=scale,
                            kv_chunk=min(1024, k.shape[2]))
+
+
+def _sharded_attn(q, k, v, be: Policy, **kw):
+    from torch.distributed.tensor import Replicate
+    q, k, v = (spmd.settle(t) for t in (q, k, v))
+    pl = tuple(a if a == b == c else Replicate()
+               for a, b, c in zip(q.placements, k.placements, v.placements))
+    q, k, v = (t if tuple(t.placements) == pl
+               else t.redistribute(t.device_mesh, pl) for t in (q, k, v))
+    return spmd.local(lambda a, b, c: _full_attn(a, b, c, be, **kw), pl,
+                      q, k, v)
 
 
 def decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
@@ -379,6 +397,8 @@ def _expert_ffn(p, buf, be: Policy, x_dtype):
     bf16 intermediates in f32 (excess precision), so one rounding is what
     the reference's serving step computes."""
     wg, wu, wd = (w.to(x_dtype) for w in (p.w_gate, p.w_up, p.w_down))
+    if spmd.is_dtensor(buf):
+        return _sharded_expert_ffn(buf, wg, wu, wd)
     if buf.ndim == 4:
         g = torch.einsum("gecd,edf->gecf", buf, wg)
         u = torch.einsum("gecd,edf->gecf", buf, wu)
@@ -397,6 +417,64 @@ def _expert_ffn(p, buf, be: Policy, x_dtype):
     return gmm(h, wd)
 
 
+def _sharded_expert_ffn(buf, wg, wu, wd):
+    """The 4-D expert FFN on DTensors: the expert weights gathered over
+    the batch axes (FSDP), the buffer laid out to match them on ``model``
+    (EP: ``Shard(1)``, the experts; TP on ``expert_mlp``: replicated, the
+    output then ``Partial``), the library einsums on the local shards."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    wg, wu, wd = (spmd.gather_fsdp(w) for w in (wg, wu, wd))
+    buf = spmd.settle(buf)
+    pl, out = [], []
+    for b, g, dn in zip(buf.placements, wg.placements, wd.placements):
+        pl.append(Shard(1) if g.is_shard(0) else
+                  Replicate() if g.is_shard(2) else b)
+        out.append(Partial() if dn.is_shard(1) else pl[-1])
+    if tuple(pl) != tuple(buf.placements):
+        buf = buf.redistribute(buf.device_mesh, tuple(pl))
+
+    def ffn(b, g_w, u_w, d_w):
+        g = torch.einsum("gecd,edf->gecf", b, g_w)
+        u = torch.einsum("gecd,edf->gecf", b, u_w)
+        h = (F.silu(g.float()) * u.float()).to(g.dtype)
+        return torch.einsum("gecf,efd->gecd", h, d_w)
+    y = spmd.local(ffn, tuple(out), buf, wg, wu, wd)
+    return constrain(y, "moe_group", "experts", None, None)
+
+
+def _sharded_moe(p, x, be: Policy, cfg: ModelConfig, G: int):
+    """:func:`moe` on DTensors: G dispatch groups along the batch
+    sharding (one group, x gathered whole, where the per-shard guard
+    fails), the dispatch and the combine on each rank's local groups
+    (top-k, sort and scatter have no sharding strategy: they run through
+    ``local_map`` on the group dim, every model rank alike), the expert
+    FFN by :func:`_sharded_expert_ffn`."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T, k = B * S, m.top_k
+    x = spmd.settle(x)
+    if G <= 1 or T % G or (T // G) % 8:
+        G = 1
+        xg = x.redistribute(x.device_mesh, spmd.replicate(x.device_mesh)) \
+            .reshape(1, T, d)
+    else:
+        xg = constrain(x.reshape(G, T // G, d), "moe_group", None, None)
+    T_loc, C = T // G, _capacity(T // G, m)
+    xg = spmd.settle(xg)
+    pl = tuple(xg.placements)
+    buf, (slot, top_p), aux = spmd.local(
+        lambda xl, r: _moe_dispatch_groups(r, xl, cfg, C), (pl, pl, pl, pl),
+        xg, spmd.whole(p.router))
+    buf = constrain(buf, "moe_group", "experts", None, None)
+    out_buf = _expert_ffn(p, buf, be, x.dtype)
+    out_buf = out_buf.redistribute(out_buf.device_mesh, pl)
+    yg = spmd.local(lambda o, sl, tp: _moe_combine_groups(
+        o, (sl, tp), T_loc, k), pl, out_buf, slot, top_p)
+    if G > 1:
+        yg = constrain(yg, "moe_group", None, None)
+    return yg.to(x.dtype).reshape(B, S, d), aux.mean()
+
+
 def moe(p, x, be: Policy, cfg: ModelConfig):
     """x: (B, S, d) -> (y, aux).
 
@@ -412,6 +490,8 @@ def moe(p, x, be: Policy, cfg: ModelConfig):
     B, S, d = x.shape
     T, k = B * S, m.top_k
     G = moe_shard_count()
+    if spmd.is_dtensor(x):
+        return _sharded_moe(p, x, be, cfg, G)
     if G <= 1 or T % G or (T // G) % 8:
         buf, meta, aux = _moe_dispatch(p.router, x.reshape(T, d), cfg,
                                        _capacity(T, m))

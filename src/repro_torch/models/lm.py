@@ -47,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import mm, remat, rmsnorm, stack_specs
+from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain
 
 
@@ -217,6 +218,8 @@ def _loaders(cfg: ModelConfig, device, dtype: torch.dtype):
     def t(a, dt=dtype):
         if a is None:
             return None
+        if spmd.is_dtensor(a):           # a sharded restore's leaf
+            return a.to(dtype=dt)
         a = torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
         return a.to(device=device, dtype=dt)
 
@@ -285,10 +288,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
 def to_host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     """A tensor (or None) as a numpy copy on the host; bf16 and f16 come
-    back widened to f32 (numpy has no bf16)."""
+    back widened to f32 (numpy has no bf16).  A DTensor is gathered whole
+    first (a collective: every rank calls it)."""
     if t is None:
         return None
     t = t.detach()
+    if spmd.is_dtensor(t):
+        t = t.full_tensor()
     if t.dtype in (torch.bfloat16, torch.float16):
         t = t.float()
     return t.to("cpu", copy=True).numpy()
@@ -389,10 +395,40 @@ def _embed_tokens(params: DenseLM, cfg: ModelConfig, tokens,
                   prefix_embeds=None):
     """Token embeddings (B, S, d) in the compute dtype, after the
     frontend's ``prefix_embeds`` (B, P, d) when given."""
-    x = params.embed[tokens].to(cfg.compute_dtype)
+    if spmd.any_dtensor(tokens, params.embed):
+        x = _sharded_embed(params.embed, tokens).to(cfg.compute_dtype)
+    else:
+        x = params.embed[tokens].to(cfg.compute_dtype)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(cfg.compute_dtype), x], dim=1)
     return constrain(x, "batch", None, None)
+
+
+def _sharded_embed(embed, tokens):
+    """The embedding lookup on DTensors: on a mesh dim that splits the
+    vocabulary (the table's rows) each rank gathers the rows it holds and
+    zeros for the rest, so the output is ``Partial`` there (one nonzero
+    term a row: the sum is exact); on a dim that splits the batch the
+    rows follow the tokens."""
+    from torch.distributed.tensor import Partial
+    embed = spmd.gather_fsdp(embed)
+    mesh = embed.device_mesh
+    tokens = spmd.as_dtensor(tokens, mesh)
+    out = tuple(Partial() if e.is_shard() else t
+                for t, e in zip(tokens.placements, embed.placements))
+    split = any(e.is_shard() for e in embed.placements)
+    lo = spmd.local_offset(embed.shape, mesh, embed.placements)[0]
+
+    def lookup(tok, tab):
+        if not split:
+            return tab[tok]
+        idx = tok - lo
+        ok = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(ok[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+    return spmd.local(lookup, out, tokens, embed)
 
 
 def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
@@ -465,6 +501,9 @@ def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     runs again in the backward pass, kernels included."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spmd.is_dtensor(x):
+        aux = spmd.from_local(aux, x.device_mesh,
+                              spmd.replicate(x.device_mesh), ())
     if _recurrent(cfg):
         def body(x, blk, i):
             if _shared_app(cfg, i) is not None:

@@ -25,6 +25,7 @@ promoting.
 from __future__ import annotations
 
 import math
+import types
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -33,7 +34,9 @@ from torch import nn
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ref, ssd
+from repro_torch.launch import step_analyzer
 from repro_torch.models.common import mm, rmsnorm
+from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain
 
 #: parameter names of one mamba mixer, in the reference's tree order
@@ -115,13 +118,6 @@ def _conv_chunk(conv_state, x, w, b):
     return y.to(x.dtype)
 
 
-def _project(p: Mamba, x, cfg: ModelConfig, be: Policy):
-    s = cfg.ssm
-    di, N = cfg.d_inner, s.d_state
-    proj = mm(x, p.in_proj, be)
-    return torch.split(proj, [di, di, N, N, cfg.ssm_heads], dim=-1)
-
-
 def _gate_out(p: Mamba, y, z, x, cfg: ModelConfig, be: Policy):
     """y (B, S, di) f32 -> the block output: gate by silu(z), RMSNorm,
     out_proj, as the reference writes it."""
@@ -138,10 +134,32 @@ def mamba(p: Mamba, x, be: Policy, cfg: ModelConfig,
     (conv_state, ssm_h): a one-token chunk of the serving recurrence."""
     if state is not None:
         return paged_step(p, x, be, cfg, state)
+    if spmd.is_dtensor(x):
+        return _sharded_mamba(p, x, be, cfg)
+    y = _mix(p, mm(x, p.in_proj, be), x.dtype, be, cfg)
+    return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
+
+
+def _split(proj, cfg: ModelConfig):
+    """in_proj's output (B, S, 2·di + 2·N + nh) as (z, x, B, C, dt)."""
+    di, N = cfg.d_inner, cfg.ssm.d_state
+    return torch.split(proj, [di, di, N, N, cfg.ssm_heads], dim=-1)
+
+
+def _mix(p, proj, x_dtype, be: Policy, cfg: ModelConfig):
+    """in_proj's output -> the gated y (B, S, di) that the norm and
+    out_proj read (:func:`_gated` of its parts)."""
+    return _gated(p, *_split(proj, cfg), x_dtype, be, cfg)
+
+
+def _gated(p, z, xs, Bm, Cm, dt, x_dtype, be: Policy, cfg: ModelConfig):
+    """The conv, the SSD scan (the kernel or ``ref_ssd``) and the gate
+    over the heads ``xs`` and ``dt`` hold (every head on one rank, a
+    rank's share under tensor parallelism: ``p`` holds the conv weights
+    of [xs | B | C]'s channels and the per-head vectors of those heads)."""
     s = cfg.ssm
-    B, S, _ = x.shape
-    di, N, nh, P = cfg.d_inner, s.d_state, cfg.ssm_heads, s.head_dim
-    z, xs, Bm, Cm, dt = _project(p, x, cfg, be)
+    B, S, di = xs.shape
+    N, nh, P = Bm.shape[-1], dt.shape[-1], s.head_dim
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     A = -torch.exp(p.A_log)
     conv_out = constrain(_silu(_causal_conv(conv_in, p.conv_w, p.conv_b)),
@@ -159,7 +177,58 @@ def mamba(p: Mamba, x, be: Policy, cfg: ModelConfig,
     else:
         y = ref.ref_ssd(xs_c, dt_c, A, B_c, C_c, D_skip=p.D,
                         chunk=s.chunk).float()
-    return _gate_out(p, y.reshape(B, S, di), z, x, cfg, be)
+    y = y.reshape(B, S, di).to(x_dtype)
+    return y * _silu(z.float()).to(x_dtype)
+
+
+#: the mixer's weights that :func:`_gated` reads (all but the projections
+#: and the norm)
+_MIX = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
+
+
+def _sharded_mamba(p: Mamba, x, be: Policy, cfg: ModelConfig):
+    """:func:`mamba` on DTensors.  in_proj is column-parallel, and its
+    output is made whole along the last dim (the split into z, x, B, C,
+    dt crosses the shards).  Where ``inner`` is on a mesh dim that the
+    heads divide, each rank then takes its heads' share of z, x and dt
+    (a slice, no collective) and of the conv weights and per-head
+    vectors, with B and C whole, and runs the conv, the scan and the gate
+    on them; the norm spans the ranks' shares, and out_proj is
+    row-parallel.  Elsewhere the mixer runs whole on every rank."""
+    from torch.distributed.tensor import Replicate, Shard
+    di, nh = cfg.d_inner, cfg.ssm_heads
+    proj = spmd.settle(mm(x, p.in_proj, be))
+    mesh, last = proj.device_mesh, proj.ndim - 1
+    pl = tuple(Replicate() if q.is_shard(last) else q
+               for q in proj.placements)
+    if pl != tuple(proj.placements):
+        proj = proj.redistribute(mesh, pl)
+    tp = [q.is_shard(1) and nh % mesh.size(j) == 0
+          for j, q in enumerate(p.in_proj.placements)]
+    if not any(tp):
+        ws = [spmd.whole(getattr(p, k)) for k in _MIX]
+        y = spmd.local(lambda pr, *w: _mix(
+            types.SimpleNamespace(**dict(zip(_MIX, w))), pr, x.dtype, be,
+            cfg), pl, proj, *ws)
+        return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
+    heads = tuple(Shard(last) if t else q for t, q in zip(tp, pl))
+    cols = tuple(Shard(1) if t else Replicate() for t in tp)
+    vec = tuple(Shard(0) if t else Replicate() for t in tp)
+    z, xs, Bm, Cm, dt = _split(proj, cfg)
+    z, xs, dt = (t.redistribute(mesh, heads) for t in (z, xs, dt))
+    cw, cb = spmd.whole(p.conv_w), spmd.whole(p.conv_b)
+    ws = [cw[:, :di].redistribute(mesh, cols), cw[:, di:],
+          cb[:di].redistribute(mesh, vec), cb[di:]] + [
+        spmd.whole(getattr(p, k)).redistribute(mesh, vec)
+        for k in ("A_log", "D", "dt_bias")]
+
+    def body(z, xs, Bm, Cm, dt, cw_x, cw_bc, cb_x, cb_bc, A_log, D, dt_bias):
+        w = types.SimpleNamespace(conv_w=torch.cat([cw_x, cw_bc], 1),
+                                  conv_b=torch.cat([cb_x, cb_bc]),
+                                  A_log=A_log, D=D, dt_bias=dt_bias)
+        return _gated(w, z, xs, Bm, Cm, dt, x.dtype, be, cfg)
+    y = spmd.local(body, heads, z, xs, Bm, Cm, dt, *ws)
+    return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
 
 
 # --------------------------------------------------------------------------
@@ -196,7 +265,9 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
     re-selected through ``torch.where`` so inactive rows stay bitwise
     untouched.  Each valid token undergoes exactly the ops of the
     one-token decode step, in a Python loop over the chunk, so chunking
-    is invisible to the carry.  Returns (y (B, C, d), (conv', h'))."""
+    is invisible to the carry.  Returns (y (B, C, d), (conv', h')).
+    On meta tensors under a counting ``step_analyzer.StepCounter`` (the
+    dry run) the loop's body runs once, counted C times."""
     s = cfg.ssm
     B, C, _ = x.shape
     di, N, nh, P = cfg.d_inner, s.d_state, cfg.ssm_heads, s.head_dim
@@ -206,7 +277,7 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
         seg_len = torch.full((B,), C, dtype=torch.long, device=dev)
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
-    z, xs, Bm, Cm, dt = _project(p, x, cfg, be)
+    z, xs, Bm, Cm, dt = _split(mm(x, p.in_proj, be), cfg)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)                 # (B, C, ch)
     A = -torch.exp(p.A_log)
     conv_out = _silu(_conv_chunk(conv_state, conv_in, p.conv_w, p.conv_b))
@@ -220,7 +291,14 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
     dt_m = torch.where(valid[..., None], dt_c, torch.zeros((), device=dev))
     xf = xs_c.float()
     hc, ys = h, []
-    for t in range(C):
+    if dev.type == "meta" and step_analyzer.trip_counting():
+        # the dry run: the C alike iterations counted as one body run C
+        # times (the reference's lax.scan trip count); nothing to compute
+        with step_analyzer.trip_count(C):
+            hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, 0], dt_m[:, 0], A,
+                                              B_c[:, 0], C_c[:, 0])
+        ys = [y_t] * C
+    for t in range(len(ys), C):
         hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, t], dt_m[:, t], A,
                                           B_c[:, t], C_c[:, t])
         ys.append(y_t)

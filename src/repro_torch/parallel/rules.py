@@ -139,11 +139,60 @@ class Rules:
         return {k: self.tree_local(v, struct_tree[k])
                 for k, v in spec_tree.items()}
 
+    def distribute(self, tree, spec_tree):
+        """``tree`` with every tensor leaf a DTensor over the rules' mesh
+        (a ``DeviceMesh``), laid out by its spec in ``spec_tree`` (the
+        reference's ``tree_shardings`` and ``jit(out_shardings=)``).  A
+        leaf is a tensor, or an ``nn.Module`` whose parameters are
+        matched to the spec tree by :func:`param_spec`; anything else (a
+        step count, None) is kept.  Every rank holds the same full
+        leaves and keeps its slice (``spmd.distribute``)."""
+        from torch import nn
+
+        from repro_torch.models.common import map_params
+        from repro_torch.parallel import spmd
+        if isinstance(tree, dict):
+            return {k: self.distribute(v, spec_tree[k])
+                    for k, v in tree.items()}
+        if isinstance(tree, nn.Module):
+            return map_params(tree, lambda name, p: spmd.distribute(
+                p, self.mesh, self.placements(param_spec(spec_tree,
+                                                         name))))
+        if spmd.is_dtensor(tree) or not hasattr(tree, "shape"):
+            return tree
+        return spmd.distribute(tree, self.mesh, self.placements(spec_tree))
+
+    def shardings(self, spec_tree):
+        """``spec_tree`` with every spec a ``(mesh, placements)`` pair (the
+        reference's ``tree_shardings``), as ``Checkpointer.restore``
+        reads it; None stays None."""
+        if spec_tree is None:
+            return None
+        if isinstance(spec_tree, tuple):
+            return (self.mesh, self.placements(spec_tree))
+        return {k: self.shardings(v) for k, v in spec_tree.items()}
+
     def report(self) -> str:
         lines = [f"{k} -> {v}" for k, v in sorted(self.table.items())]
         lines += [f"FALLBACK {k}: {v}"
                   for k, v in sorted(self.fallbacks.items())]
         return "\n".join(lines)
+
+
+def param_spec(spec_tree, name: str):
+    """The spec of the module parameter ``name`` (as ``named_parameters``
+    names it) in ``spec_tree`` (``params_to_numpy``'s tree): the path
+    without its layer indices, and a leaf of a layer stack without its
+    leading "layers" axis (the port keeps one module per layer)."""
+    node, stacked = spec_tree, False
+    for part in name.split("."):
+        if part.isdigit():
+            stacked = True
+            continue
+        node = node[part]
+    if stacked and node and node[0] == "layers":
+        node = node[1:]
+    return node
 
 
 def make_rules(cfg: ModelConfig, mesh, *, fsdp: bool = True,

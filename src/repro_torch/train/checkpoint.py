@@ -19,6 +19,11 @@ restores in the other.
   never corrupt the latest checkpoint (restore scans for complete dirs).
 * ``save`` can write on a background thread (async): the state is copied
   to the host first, so training goes on while it is written.
+* On several ranks the state's DTensor leaves are gathered whole by
+  ``loop.state_to_numpy`` (every rank calls it), rank 0 alone writes,
+  and :meth:`Checkpointer.wait` holds every rank until the write is
+  done.  ``restore(shardings=)`` gives each rank its shard of each full
+  array, read from the ``.npy`` through a memory map.
 """
 from __future__ import annotations
 
@@ -64,6 +69,18 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _primary() -> bool:
+    """Whether this process writes (rank 0, or the only process)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _safe(name: str) -> str:
     return re.sub(r"[^A-Za-z0-9_./-]", "_", name).replace("/", "__")
 
@@ -93,6 +110,8 @@ class Checkpointer:
         # Always drain the previous async writer first: a sync save racing
         # an in-flight async save of the same step collides on the .tmp dir.
         self.wait()
+        if not _primary():
+            return
         if async_:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_state, extra or {}),
@@ -102,9 +121,12 @@ class Checkpointer:
             self._write(step, host_state, extra or {})
 
     def wait(self) -> None:
+        """Until the last save is on disk (on several ranks: every rank
+        waits for rank 0's writer)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
     def _write(self, step: int, host_state, extra: Dict) -> None:
         final = os.path.join(self.dir, f"step_{step:08d}")
@@ -148,12 +170,18 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, like=None, step: Optional[int] = None
-                ) -> Tuple[Dict[str, Any], Dict]:
+    def restore(self, like=None, step: Optional[int] = None,
+                shardings=None) -> Tuple[Dict[str, Any], Dict]:
         """(the state as a nested dict of numpy arrays, extra) of ``step``
         (default: the latest).  ``like``, a tree of the saved structure
         (values ignored), names the leaves to read: each must be in the
-        checkpoint.  Without it every saved leaf is read."""
+        checkpoint.  Without it every saved leaf is read.
+
+        ``shardings`` (``Rules.shardings``: a tree of ``(mesh,
+        placements)`` pairs shaped like the state) makes each leaf of
+        rank >= 1 a DTensor on the mesh's device holding this rank's
+        shard, read from the file through a memory map; a scalar stays an
+        array."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -166,6 +194,32 @@ class Checkpointer:
         missing = [n for n in names if n not in files]
         if missing:
             raise ValueError(f"checkpoint missing leaves: {missing[:5]}")
-        state = _unflatten((n, np.load(os.path.join(d, files[n])))
-                           for n in names)
+
+        def read(n):
+            path = os.path.join(d, files[n])
+            if shardings is None:
+                return np.load(path)
+            arr = np.load(path, mmap_mode="r")
+            if arr.ndim == 0:
+                return np.array(arr)
+            mesh, pl = _at(shardings, n)
+            return _shard(arr, mesh, pl)
+        state = _unflatten((n, read(n)) for n in names)
         return state, manifest["extra"]
+
+
+def _at(tree, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _shard(arr: np.ndarray, mesh, placements):
+    """This rank's shard of the full array ``arr`` (a memory map: only the
+    shard's bytes are read) as a DTensor on the mesh's device."""
+    from repro_torch.parallel import spmd
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    loc = torch.from_numpy(np.array(spmd.local_slice(arr, mesh, placements)))
+    return spmd.from_local(loc.to(dev), mesh, placements, arr.shape)

@@ -8,8 +8,9 @@
   batches bit for bit.
 * ``MemmapTokens`` — memory-mapped binary token corpus with a step cursor.
 * Both shard rows across hosts by process index; :func:`to_device` moves
-  one host's batch to the device (no shardings: ``parallel/`` is not
-  ported).
+  one host's batch to the device, and :func:`make_global_batch` makes
+  the ranks' rows one batch-sharded DTensor (the reference's
+  ``make_global_batch``).
 """
 from __future__ import annotations
 
@@ -75,4 +76,23 @@ def to_device(host_batch: Dict[str, np.ndarray],
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)
+    return out
+
+
+def make_global_batch(local_batch: Dict[str, torch.Tensor], mesh,
+                      placements: Dict[str, tuple]
+                      ) -> Dict[str, torch.Tensor]:
+    """Each rank's rows (``to_device`` of ``batch(step, host, num_hosts)``
+    with ``host, num_hosts = spmd.shard_coordinate(mesh, placements[k])``)
+    as one global batch DTensor a key, laid out by ``placements`` (the
+    rules' ``data_shardings``): the global batch is the ranks' rows in
+    order of their batch coordinate.  No collective: each rank's shard is
+    its own rows."""
+    from repro_torch.parallel import spmd
+    out = {}
+    for k, v in local_batch.items():
+        pl = placements[k]
+        n = spmd.shard_coordinate(mesh, pl)[1]
+        shape = (v.shape[0] * n,) + tuple(v.shape[1:])
+        out[k] = spmd.from_local(v, mesh, pl, shape)
     return out

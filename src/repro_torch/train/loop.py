@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import map_params
 from repro_torch.models.registry import Model
+from repro_torch.parallel import spmd
 from repro_torch.train import optimizer as opt
 
 
@@ -54,17 +55,63 @@ def train_state_specs(model: Model) -> Dict[str, Any]:
     return {"params": ps, "opt": {"m": ps, "v": ps}, "step": ()}
 
 
-def _xent(logits, labels, vocab: int, z_loss: float):
-    """Masked cross-entropy in f32 + z-loss; labels == -1 are ignored.  The
-    logsumexp runs over the padded vocabulary, as the reference's."""
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.clamp(0, vocab - 1)[..., None])[..., 0]
+def _xent_tail(lse, ll, labels, vocab: int, z_loss: float):
+    """(the sum of the per-token losses, the count of valid tokens) from
+    each token's logsumexp and label logit."""
     valid = (labels >= 0) & (labels < vocab)
     per_tok = (lse - ll) + z_loss * lse ** 2
-    per_tok = torch.where(valid, per_tok, torch.zeros((), device=lf.device))
-    n = torch.clamp(valid.sum(), min=1)
-    return per_tok.sum() / n, n
+    per_tok = torch.where(valid, per_tok, torch.zeros((), device=lse.device))
+    return per_tok.sum(), valid.sum()
+
+
+def _xent(logits, labels, vocab: int, z_loss: float):
+    """Masked cross-entropy in f32 + z-loss; labels == -1 are ignored.  The
+    logsumexp runs over the padded vocabulary, as the reference's.  On
+    DTensors the vocabulary stays sharded (:func:`_sharded_xent`)."""
+    if spmd.any_dtensor(logits, labels):
+        tot, cnt = _sharded_xent(logits, labels, vocab, z_loss)
+    else:
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1,
+                          labels.clamp(0, vocab - 1)[..., None])[..., 0]
+        tot, cnt = _xent_tail(lse, ll, labels, vocab, z_loss)
+    n = torch.clamp(cnt, min=1)
+    return tot / n, n
+
+
+def _sharded_xent(logits, labels, vocab: int, z_loss: float):
+    """The loss sums over vocab-sharded logits, the vocabulary never
+    gathered: each rank's row maximum, reduced (max); each rank's sum of
+    exp(logit - max) and the label's logit where it holds it (0 where
+    not), reduced (sum); then each rank's rows, summed and reduced once
+    over the batch axes.  Only (B, S) statistics cross the ranks."""
+    from torch.distributed.tensor import Partial, Replicate
+    logits = spmd.settle(logits)
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = tuple(logits.placements)
+    row = tuple(Replicate() if q.is_shard(last) else q for q in pl)
+    row_sum = tuple(Partial() if q.is_shard(last) else q for q in pl)
+    row_max = tuple(Partial("max") if q.is_shard(last) else q for q in pl)
+    lo = spmd.local_offset(logits.shape, mesh, pl)[last]
+    m = spmd.local(lambda lg: lg.detach().float().amax(-1), row_max,
+                   logits).redistribute(mesh, row)
+
+    def pieces(lg, mx, lb):
+        lf = lg.float()
+        sumexp = torch.exp(lf - mx[..., None]).sum(-1)
+        idx = lb - lo
+        held = (idx >= 0) & (idx < lf.shape[-1])
+        pick = torch.gather(lf, -1, idx.clamp(0, lf.shape[-1] - 1)[..., None])
+        return sumexp, torch.where(held, pick[..., 0],
+                                   torch.zeros((), device=lf.device))
+    sumexp, ll = spmd.local(pieces, (row_sum, row_sum), logits, m, labels)
+    lse = torch.log(spmd.settle(sumexp)) + m
+    red = tuple(Partial() if q.is_shard() else q for q in row)
+    tot, cnt = spmd.local(
+        lambda a, b, c: _xent_tail(a, b, c, vocab, z_loss), (red, red), lse,
+        spmd.settle(ll), labels)
+    return spmd.settle(tot), spmd.settle(cnt)
 
 
 def record_step(step: int, metrics: Dict[str, float],
@@ -110,7 +157,28 @@ def _split_micro(batch: Dict[str, torch.Tensor],
                  accum: int) -> List[Dict[str, torch.Tensor]]:
     """The batch cut along its batch dim into ``accum`` equal
     microbatches (a batch they do not divide raises, as the reference's
-    reshape does)."""
+    reshape does).  A batch-sharded DTensor is cut on each rank: each
+    rank's local rows go into ``accum`` microbatches, so every
+    microbatch holds rows of every batch shard, the same count of each
+    (the reference reshapes the global rows, which its ``lax.scan`` over
+    a batch-sharded dim refuses).  Where ``accum`` does not divide the
+    local rows, the batch is gathered whole and cut as one rank cuts it,
+    each microbatch then replicated over the batch axes."""
+    if any(spmd.is_dtensor(v) for v in batch.values()):
+        def cut(v):
+            loc = v.to_local()
+            n = loc.shape[0] // accum
+            if n * accum != loc.shape[0]:
+                v = v.redistribute(v.device_mesh,
+                                   spmd.replicate(v.device_mesh))
+                m = v.shape[0] // accum
+                return [v[i * m:(i + 1) * m] for i in range(accum)]
+            shape = (v.shape[0] // accum,) + tuple(v.shape[1:])
+            return [spmd.from_local(loc[i * n:(i + 1) * n], v.device_mesh,
+                                    v.placements, shape)
+                    for i in range(accum)]
+        parts = {k: cut(v) for k, v in batch.items()}
+        return [{k: p[i] for k, p in parts.items()} for i in range(accum)]
     parts = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
              for k, v in batch.items()}
     return [{k: p[i] for k, p in parts.items()} for i in range(accum)]
@@ -126,7 +194,8 @@ def cast_params_for_compute(params: nn.Module,
     and the router.  The port keeps one module per layer, so a leaf's
     rank is its per-layer rank, the rule the reference documents (its
     check on layer-stacked leaves casts the vectors too: ROADMAP §3).
-    A leaf that keeps its dtype shares the master's storage."""
+    A leaf that keeps its dtype shares the master's storage; a DTensor
+    leaf keeps its placements."""
     dt = cfg.compute_dtype
 
     def cast(name, p):
@@ -137,19 +206,34 @@ def cast_params_for_compute(params: nn.Module,
     return map_params(params, cast, requires_grad=True)
 
 
+def _like(g, p):
+    """A gradient in its parameter's placements (a DTensor gradient may
+    come back ``Partial`` or laid out otherwise); a plain one as it is."""
+    if spmd.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(model: Model, tc: TrainConfig, be: Policy) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     are ``loss`` and ``grad_norm`` (device scalars) and ``lr``.
 
     With ``accum_steps > 1`` the batch is split along the batch dim and
-    the gradients are accumulated in f32, one backward a microbatch."""
+    the gradients are accumulated in f32, one backward a microbatch.
+
+    On several ranks the state's leaves are DTensors laid out by the
+    rules (``Rules.distribute``) and the batch a batch-sharded DTensor
+    (``data.make_global_batch``); the same step runs, each GEMM on its
+    rank's shards, each gradient in its parameter's placements.  The loss
+    comes back as a plain, replicated scalar."""
     loss_fn = make_loss_fn(model, tc, be)
 
     def grads_of(pc: nn.Module, batch):
         names, leaves = zip(*pc.named_parameters())
         loss, _ = loss_fn(pc, batch)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+        return loss.detach(), {n: torch.zeros_like(p) if g is None
+                               else _like(g, p)
                                for n, p, g in zip(names, leaves, gs)}
 
     def train_step(state, batch):
@@ -166,6 +250,8 @@ def make_train_step(model: Model, tc: TrainConfig, be: Policy) -> Callable:
             loss = lsum / tc.accum_steps
         else:
             loss, grads = grads_of(pc, batch)
+        if spmd.is_dtensor(loss):
+            loss = loss.full_tensor()
         params, opt_state, om = opt.adamw_update(
             params, grads, state["opt"], state["step"], tc.opt)
         return ({"params": params, "opt": opt_state,

@@ -10,7 +10,9 @@ traced arithmetic takes them.  Weight decay applies to the leaves of rank
 (the reference tests the rank of its layer-stacked leaves, which decays
 the per-layer vectors too: ROADMAP §3).
 
-Memory: f32 master, m and v take 12 bytes a parameter.
+Memory: f32 master, m and v take 12 bytes a parameter.  On several
+ranks they are DTensors laid out alike (FSDP: ``Shard`` on ``embed``),
+and the update runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.common import map_params
+from repro_torch.parallel import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +66,13 @@ def init_opt_state(params: nn.Module) -> Dict[str, nn.Module]:
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient, in f32 (a device
-    scalar: no host sync)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    scalar: no host sync).  DTensor gradients are summed on their shards
+    and reduced by one all-reduce (``spmd.owned_sum``): a plain scalar,
+    the same on every rank."""
+    gs = list(grads.values())
+    if gs and spmd.is_dtensor(gs[0]):
+        return torch.sqrt(spmd.owned_sum(gs))
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))
 
 
 @torch.no_grad()
@@ -85,8 +92,13 @@ def adamw_update(params: nn.Module, grads: Dict[str, torch.Tensor],
     m_of = dict(opt_state["m"].named_parameters())
     v_of = dict(opt_state["v"].named_parameters())
     for name, p in params.named_parameters():
-        g = grads[name].float() * scale
-        m, v = m_of[name], v_of[name]
+        g = grads[name]
+        if spmd.is_dtensor(p):           # the update is elementwise: shards
+            p, g = p.to_local(), g.to_local()
+            m, v = m_of[name].to_local(), v_of[name].to_local()
+        else:
+            m, v = m_of[name], v_of[name]
+        g = g.float() * scale
         m.copy_(c.b1 * m + (1 - c.b1) * g)
         v.copy_(c.b2 * v + (1 - c.b2) * g * g)
         upd = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)

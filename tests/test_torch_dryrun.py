@@ -7,6 +7,15 @@ CPU tensors; remat ``full`` must add exactly the blocks' forward FLOPs
 (the recompute) and nothing of the embedding or the vocabulary head.  Two
 full-size cells run on the meta device; the CLI writes its JSON and
 skips what it has; nothing touches CUDA or leaves a process group.
+
+A train cell on a mesh of several ranks is a real sharded step under a
+fake process group of the mesh's size (``dryrun.fake_world``), counted
+as rank 0's local ops: with no fallback its matmul FLOPs are the global
+count / devices exactly, a rule's fallback adds the work it replicates,
+and its collectives are counted by kind.  A serving cell runs on one
+rank (the port serves on one rank) and keeps the ideal split.  The SSM
+serving recurrence's token loop is trip-counted on the meta device: the
+counts equal the unrolled loop's exactly.
 """
 import dataclasses
 import json
@@ -135,12 +144,95 @@ def test_full_size_cells_on_meta(arch, shape, mesh):
     assert ma["argument_size_in_bytes"] == sum(ma["arguments"].values())
     assert set(ma["arguments"]) == {"params", "batch", "cache"}
     rl = rec["roofline"]
+    # a serving cell runs on one rank: no collectives, the ideal split
     assert rl["collective_s"] is None and rl["coll_bytes"] is None
+    assert rl["collective_note"] == step_stats.COLL_ONE_RANK
+    assert rec["per_device"].startswith("ideal")
     assert rl["step_s"] == max(rl["compute_s"], rl["memory_s"]) > 0
     assert rl["flops"] == rec["analyzer"]["flops"] / rec["devices"]
     assert rec["model_flops_per_dev"] == dryrun.model_flops(
         configs.get_config(arch), SHAPES[shape]) / rec["devices"]
     json.dumps(rec)
+
+
+def _train_cell(arch, mesh, batch, **kw):
+    cfg = _smoke(arch, remat="none", **kw)
+    shape = ShapeConfig("t", 32, batch, "train")
+    ms = mesh_mod.mesh_shape(mesh, ("data", "model"))
+    rec = dryrun.run_cell(arch, "t", False, accum=1, cfg=cfg, shape=shape,
+                          mesh=ms)
+    one = dryrun.count_step(cfg, shape, ONE)
+    return rec, one, cfg
+
+
+def test_train_cell_without_fallback_splits_every_dot():
+    """olmo-smoke on 2 x 4 has no fallback: every dot is split both ways
+    (batch over data, heads, mlp and vocab over model), so rank 0's
+    matmul FLOPs are the one-rank step's / 8 exactly."""
+    rec, one, _ = _train_cell("olmo-1b", (2, 4), 8)
+    assert rec["rules_fallbacks"] == {}
+    assert rec["per_device"].startswith("rank 0 of 8")
+    assert rec["roofline"]["flops"] * 8 == one.flops > 0
+    assert rec["analyzer"]["flops"] == rec["roofline"]["flops"]
+
+
+def test_train_cell_fallback_charges_what_it_replicates():
+    """gemma3-smoke on 2 x 16, as gemma3-1b on the production mesh: its 8
+    (padded) kv heads do not split 16 ways, so the rules replicate
+    kv_heads ("size 256 % model(16) != 0"); each model rank then
+    computes the K/V projections and, with q gathered to match, the
+    attention oracle whole.  Rank 0's FLOPs exceed the one-rank step's /
+    32 by exactly (1 - 1/model) of its batch shard's share of those
+    products, forward and both adjoints."""
+    rec, one, cfg = _train_cell("gemma3-1b", (2, 16), 8)
+    assert set(rec["rules_fallbacks"]) == {"kv_heads"}
+    assert rec["rules_fallbacks"]["kv_heads"].startswith(
+        "size 256 % model(16) != 0")
+    dd, md, B, S = 2, 16, 8, 32
+    d, hd = cfg.d_model, cfg.head_dim_
+    H, Hkv = cfg.n_heads_padded, cfg.n_kv_heads_padded
+    kv = 2 * B * S * d * 2 * Hkv * hd
+    core = 2 * (2 * B * H * S * S * hd)
+    excess = cfg.n_layers * 3 * (kv + core) * (md - 1) // (dd * md)
+    assert rec["roofline"]["flops"] * dd * md > one.flops
+    assert rec["roofline"]["flops"] - one.flops // (dd * md) == excess
+
+
+def test_train_cell_counts_collectives_by_kind():
+    """A sharded train step's collectives: the FSDP weight all-gathers
+    and the gradients' reduce-scatters (and the TP all-reduces), by kind,
+    with collective_s their total over the labelled NVLink rate."""
+    rec, _, _ = _train_cell("olmo-1b", (2, 4), 8)
+    rl = rec["roofline"]
+    cb = rl["coll_bytes"]
+    assert cb["all-gather"] > 0 and cb["reduce-scatter"] > 0
+    assert cb["all-reduce"] > 0
+    assert cb["total"] == sum(v for k, v in cb.items() if k != "total")
+    assert rl["collective_s"] == cb["total"] / step_stats.NVLINK_BW
+    assert step_stats.NVLINK_BW == 450e9
+    assert rl["collective_note"] == step_stats.NVLINK_NOTE
+    assert rec["analyzer"]["coll_count"]["all-gather"] > 0
+    assert rl["step_s"] == max(rl["compute_s"], rl["memory_s"],
+                               rl["collective_s"])
+    json.dumps(rec)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-7b"])
+def test_ssm_prefill_trip_count_equals_the_unrolled_loop(arch):
+    """The serving recurrence's token loop on the meta device: its body
+    run once and counted S times gives the same FLOPs, bytes and ops as
+    every token dispatched one by one."""
+    cfg = _smoke(arch)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(), "meta")
+    toks = torch.zeros(2, 24, dtype=torch.int32, device="meta")
+    got = {}
+    for trip in (True, False):
+        with StepCounter(trip_counts=trip) as c, torch.no_grad():
+            model.prefill(params, toks, LIBRARY)
+        got[trip] = (c.flops, c.bytes, c.ops, c.dots)
+    assert got[True] == got[False]
+    assert got[True][0] > 0
 
 
 def test_roofline_terms():
@@ -191,14 +283,21 @@ def test_cli_json_skip_existing_and_errors(tmp_path, capsys, monkeypatch):
 
 
 def test_no_cuda_and_no_process_group(monkeypatch):
+    """A sharded train cell on the production mesh initialises no CUDA
+    (DTensor's sharding propagation asks ``torch.cuda.is_available()``,
+    a query, each time it enters its fake mode) and takes down the fake
+    process group it brought up."""
     import torch.distributed as dist
 
     def no_cuda(*a, **k):
         raise AssertionError("the dry run touched CUDA")
     monkeypatch.setattr(torch.cuda, "_lazy_init", no_cuda)
-    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    monkeypatch.setattr(torch.cuda, "init", no_cuda)
+    monkeypatch.setattr(torch.cuda, "current_device", no_cuda)
     rec = dryrun.run_cell("olmo-1b", "train_4k", False, accum=1,
                           cfg=_smoke(), shape=ShapeConfig("t", 32, 16,
                                                           "train"))
     assert rec["status"] == "ok" and rec["accum"] == 1
+    assert rec["per_device"].startswith("rank 0 of 256")
     assert not dist.is_initialized()
+    assert not torch.cuda.is_initialized()

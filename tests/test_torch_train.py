@@ -610,21 +610,16 @@ def test_launcher_routes_by_backend_and_pins_the_kernels(monkeypatch):
 
 
 def test_launcher_refusals(monkeypatch):
-    """The production meshes need their 256 and 512 ranks; a mesh of more
-    than one rank is refused as not ported (ROADMAP §1 item 6); the
-    frontend families are refused as the reference refuses them."""
+    """The production meshes need their 256 and 512 ranks (a world of one
+    rank raises, naming them, and leaves no group up); the frontend
+    families are refused as the reference refuses them.  A mesh of
+    several ranks trains (``tests/test_torch_mesh.py``)."""
     import torch.distributed as dist
-    from repro_torch.launch import mesh as mesh_mod
     with pytest.raises(ValueError, match="needs a world of 256 ranks"):
         train_mod.run(_cli("--production-mesh"))
+    assert not dist.is_initialized()
     with pytest.raises(ValueError, match="needs a world of 512 ranks"):
         train_mod.run(_cli("--production-mesh", "--multi-pod"))
-    monkeypatch.setattr(mesh_mod, "make_host_mesh",
-                        lambda device: mesh_mod.mesh_shape((2, 1),
-                                                           ("data", "model")))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        train_mod.run(_cli())
-    monkeypatch.undo()
     assert not dist.is_initialized()
     for arch in ("internvl2-2b", "seamless-m4t-large-v2"):
         with pytest.raises(ValueError, match="frontend"):
