@@ -268,7 +268,7 @@ fails the run:
             1 x 2048 tokens under ``auto`` at 8 groups and at 1: 48
             flash launches each, finite logits (run after phase 29);
 43. dryrun — the dry-run CLI (launch/dryrun.py, started in a CPU-only
-            subprocess after phase 2) for olmo-1b and moonshot-v1-16b-a3b
+            subprocess after phase 24) for olmo-1b and moonshot-v1-16b-a3b
             x train_4k and decode_32k x the 16 x 16 and 2 x 16 x 16
             meshes on the meta device: all 8 cells ok, and each cell's
             per-device argument bytes those of the reference
@@ -280,9 +280,16 @@ fails the run:
             card, the step counter's matmul FLOPs of one train step on
             meta equal to the same counter's around a real step on the
             card, and the real step's time beside the roofline's step_s
-            (printed; run after phase 41); its train cells run the
-            sharded step under a fake process group and count one rank's
-            work and its collectives;
+            (printed; run after phase 41); every cell on a mesh, train
+            and decode alike, runs the sharded step under a fake process
+            group and counts one rank's work, its collectives (printed by
+            kind) and its memory (total_nonalias printed); the anchor's
+            step bytes (total_nonalias - argument_size_in_bytes) within
+            DRYRUN_MEM_TOL of torch.cuda.max_memory_allocated() less the
+            bytes allocated before the step (after a warm step); a
+            serving anchor, olmo-1b prefill at B 4 x S 64 and one decode
+            step on the 1 x 1 mesh under ``library``: matmul FLOPs equal
+            on meta and on the card, bytes within the same tolerance;
 44. mesh train — NCCL with two ranks on the one card must refuse
             ("Duplicate GPU detected", printed); then two ranks spawned
             on cuda:0 over gloo (its all-gather of CUDA tensors staged
@@ -299,6 +306,22 @@ fails the run:
             its plain version at each of them (added to
             ``slice_shapes``), step seconds, peak memory (run after
             phase 39).
+45. serve shards — two ranks on cuda:0 over gloo (the staged all-gather
+            again) serve olmo-1b at full width and depth from one seeded
+            state under ``auto`` (non-GEMM kernels on the library): B 4,
+            a SHARD_S-token prompt, prefill and SHARD_STEPS greedy decode
+            steps on the 1 x 2 and the 2 x 1 mesh, f32 then bf16, and B 1
+            over a SHARD_LONG-slot cache on 2 x 1 (the slots split over
+            data: the split softmax; SHARD_LONG_STEPS decode steps); rank
+            0 runs the same on one rank:
+            f32 logits of every step within SHARD_TOL of its max |logit|,
+            f32 greedy tokens equal, bf16 tokens differing counted
+            (printed); IAAT launches in every decode step of every rank
+            (> 0) with the local shapes, each held against its plain
+            version and timed (added to ``slice_shapes``); rank 0's step
+            counter FLOPs of one sharded decode step under ``library``
+            on the card equal to the dry run's fake-world meta count of
+            the same step; peak memory per rank, seconds.
 Phase 37 also prints the share of outputs of the IAAT kernel equal to
 the bit to torch.matmul's at the train step's GEMM shapes (a reading,
 not a check).
@@ -4067,6 +4090,10 @@ DRYRUN_BYTES = {
 POS_BYTES = 4
 #: the anchor: olmo-1b's train step on the 1 x 1 mesh at B x S
 ANCHOR_B, ANCHOR_S = 4, 64
+#: a step's own bytes, the dry run's (meta) against the card's
+#: max_memory_allocated() past what was allocated before: relative; the
+#: caching allocator rounds every block up to 512 B
+DRYRUN_MEM_TOL = 0.10
 
 
 def _train_args(*argv):
@@ -4703,19 +4730,31 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
         if got != exp:
             raise AssertionError(f"dryrun {arch} {shape} {mesh}: argument "
                                  f"bytes {got}, want {exp}")
+        ma = rec["memory_analysis"]
         cells[f"{arch}|{shape}|{mesh}"] = {
             "count_s": rec["count_s"], "arguments": got,
+            "per_device": rec["per_device"],
             "flops_per_dev": rec["roofline"]["flops"],
             "hbm_bytes_per_dev": rec["roofline"]["hbm_bytes"],
+            "coll_bytes": rec["roofline"]["coll_bytes"],
+            "total_nonalias": ma["total_nonalias"],
+            "temp_size_in_bytes": ma["temp_size_in_bytes"],
             "step_s": rec["roofline"]["step_s"],
             "dominant": rec["roofline"]["dominant"]}
+        if not rec["per_device"].startswith("rank 0 of") or \
+                not rec["roofline"]["coll_bytes"] or \
+                ma["temp_size_in_bytes"] is None:
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: not a "
+                                 f"sharded step: {rec['per_device']}")
     if rc != 0 or len(cells) != len(DRYRUN_BYTES):
         raise AssertionError(f"dryrun: exit {rc}, cells {sorted(cells)}")
     log(f"dryrun: {len(cells)} cells ok on the meta device (waited "
         f"{waited:.1f} s for the subprocess): " + "; ".join(
             f"{k} {v['count_s']} s, args {v['arguments']}, "
-            f"flops/dev {v['flops_per_dev']:.4g}, step_s "
-            f"{v['step_s']:.4g} ({v['dominant']})"
+            f"flops/dev {v['flops_per_dev']:.4g}, collectives "
+            + ", ".join(f"{c} {b}" for c, b in v["coll_bytes"].items()
+                        if b) + f" B, total_nonalias {v['total_nonalias']}"
+            f" B, step_s {v['step_s']:.4g} ({v['dominant']})"
             for k, v in cells.items()))
     # the anchor
     lib = api.named_policy("library")
@@ -4745,6 +4784,8 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
         with StepCounter() as card:
             st, m = step(st, batch)
             float(m["loss"])
+        del m
+        own = _step_bytes(torch, lambda: step(st, batch))
         for _ in range(4):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
@@ -4754,6 +4795,9 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
             walls.append(time.perf_counter() - t1)
     wall = sorted(walls[1:])[1]
     meta_flops = rec["analyzer"]["flops"]
+    ma = rec["memory_analysis"]
+    meta_own = ma["total_nonalias"] - ma["argument_size_in_bytes"]
+    mem_rel = abs(meta_own - own) / own
     out = {"cells": cells, "waited_s": waited,
            "anchor": {"state_bytes_dryrun": state_b,
                       "state_bytes_allocated": alloc,
@@ -4762,6 +4806,9 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
                       rec["analyzer"]["dots"], "dots_card": card.dots,
                       "bytes_meta": rec["analyzer"]["bytes"],
                       "bytes_card": card.bytes, "step_s_card": wall,
+                      "step_own_bytes_meta": meta_own,
+                      "step_own_bytes_card": own, "mem_rel": mem_rel,
+                      "memory_analysis": ma,
                       "roofline": rec["roofline"]}}
     log(f"dryrun anchor {cfg.name} B{ANCHOR_B} x S{ANCHOR_S} (library, 1x1 "
         f"mesh): train state {state_b} B (dry run) against {alloc} B "
@@ -4770,12 +4817,103 @@ def phase_dryrun(torch, cfg, proc, timeout=900):
         f"matmuls); operand + output bytes {rec['analyzer']['bytes']} meta,"
         f" {card.bytes} card; step {wall * 1e3:.2f} ms on the card against "
         f"the roofline's {rec['roofline']['step_s'] * 1e3:.3f} ms "
-        f"({rec['roofline']['dominant']}-bound)")
+        f"({rec['roofline']['dominant']}-bound); the step's own bytes "
+        f"{meta_own} (dry run: total_nonalias {ma['total_nonalias']} less "
+        f"the arguments; temp {ma['temp_size_in_bytes']}, output "
+        f"{ma['output_size_in_bytes']}, alias {ma['alias_size_in_bytes']})"
+        f" against {own} on the card (max_memory_allocated past the "
+        f"allocated, after a warm step): {mem_rel:.3g} rel (tol "
+        f"{DRYRUN_MEM_TOL})")
     del st
     _free(torch)
     if not state_rel <= 0.01 or meta_flops != card.flops or \
-            card.flops <= 0:
+            card.flops <= 0 or not mem_rel <= DRYRUN_MEM_TOL:
         raise AssertionError(f"dryrun anchor: {out['anchor']}")
+    out["serve_anchor"] = _serve_anchor(torch, cfg)
+    return out
+
+
+def _step_bytes(torch, fn):
+    """The bytes ``fn`` (one step) allocates past what is allocated
+    before it, at its peak: torch.cuda.max_memory_allocated() after a
+    reset, less torch.cuda.memory_allocated() before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    own = torch.cuda.max_memory_allocated() - m0
+    del res
+    return own
+
+
+def _serve_anchor(torch, cfg):
+    """olmo-1b (``cfg``) prefill at ANCHOR_B x ANCHOR_S and one decode
+    step over the cache it made, on the 1 x 1 mesh under ``library``:
+    the step counter's matmul FLOPs on the card equal to the dry run's
+    on meta (its prefill cell, and its decode cell over a full cache of
+    ANCHOR_S slots), and each step's own bytes (the dry run's
+    total_nonalias less its arguments) within DRYRUN_MEM_TOL of the
+    card's max_memory_allocated() past the allocated.  The prefill runs
+    once to warm the library first."""
+    from repro_torch import api
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    from repro_torch.launch.step_analyzer import StepCounter
+    from repro_torch.models import registry
+    lib = api.named_policy("library")
+    one = mesh_mod.mesh_shape((1, 1), ("data", "model"))
+    model = registry.build(cfg)
+    _free(torch)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    toks = torch.randint(0, cfg.vocab, (ANCHOR_B, ANCHOR_S),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2), device="cuda", dtype=torch.int32)
+    out = {}
+    with api.using(lib), torch.no_grad():
+        model.prefill(params, toks, lib)                    # warm
+        with StepCounter() as c_pf:
+            lg, cache = model.prefill(params, toks, lib)
+        del lg, cache
+        holder = {}
+
+        def prefill():
+            holder["pf"] = model.prefill(params, toks, lib)
+            return None
+        own_pf = _step_bytes(torch, prefill)
+        lg, cache = holder.pop("pf")
+        nxt = lg.argmax(-1)[:, None].to(torch.int32)
+        del lg
+        with StepCounter() as c_dec:
+            model.decode(params, nxt, cache, lib)
+        own_dec = _step_bytes(torch, lambda: model.decode(params, nxt, cache,
+                                                          lib))
+    for kind, card, own in (("prefill", c_pf, own_pf),
+                            ("decode", c_dec, own_dec)):
+        rec = dryrun.run_cell("olmo-1b", "anchor", False, mesh=one, cfg=cfg,
+                              shape=ShapeConfig("anchor", ANCHOR_S,
+                                                ANCHOR_B, kind))
+        ma = rec["memory_analysis"]
+        meta_own = ma["total_nonalias"] - ma["argument_size_in_bytes"]
+        out[kind] = {"flops_meta": rec["analyzer"]["flops"],
+                     "flops_card": card.flops, "own_bytes_meta": meta_own,
+                     "own_bytes_card": own,
+                     "mem_rel": abs(meta_own - own) / own,
+                     "memory_analysis": ma}
+        log(f"dryrun serving anchor {cfg.name} {kind} B{ANCHOR_B} x "
+            f"S{ANCHOR_S} (library, 1x1 mesh): matmul FLOPs "
+            f"{rec['analyzer']['flops']} on meta, {card.flops} on the card;"
+            f" own bytes {meta_own} (dry run: temp "
+            f"{ma['temp_size_in_bytes']}, output {ma['output_size_in_bytes']}"
+            f", alias {ma['alias_size_in_bytes']}) against {own} on the "
+            f"card: {out[kind]['mem_rel']:.3g} rel (tol {DRYRUN_MEM_TOL})")
+    del params, cache
+    _free(torch)
+    bad = [k for k, v in out.items() if v["flops_meta"] != v["flops_card"]
+           or v["flops_card"] <= 0 or not v["mem_rel"] <= DRYRUN_MEM_TOL]
+    if bad:
+        raise AssertionError(f"dryrun serving anchor {bad}: {out}")
     return out
 
 
@@ -5063,6 +5201,252 @@ def phase_mesh_train(torch, cfg):
             "nccl": nccl, "rows": rows}
 
 
+#: the serve shards phase: olmo-1b at full width and depth on two ranks
+#: of the one card, B x S prompts, greedy decode steps over a cache of
+#: SHARD_CACHE slots; the split-slot case at B 1 over SHARD_LONG slots,
+#: SHARD_LONG_STEPS decode steps (on 2 x 1 every weight is gathered
+#: through the host, seconds a step)
+SHARD_B, SHARD_S, SHARD_STEPS, SHARD_CACHE = 4, 64, 8, 80
+SHARD_LONG, SHARD_LONG_STEPS = 2048, 4
+SHARD_MESHES = ((1, 2), (2, 1))
+#: f32 logits of every step against one rank, of its max |logit| (the
+#: f32 tolerance of PERF.md §2: the same products summed in other orders)
+SHARD_TOL = 1e-4
+
+
+def _shard_prompts(cfg):
+    """The phase's prompts (host tensors, seeded): (SHARD_B, SHARD_S) and
+    (1, SHARD_S)."""
+    import torch
+    g = torch.Generator().manual_seed(11)
+    return (torch.randint(0, cfg.vocab, (SHARD_B, SHARD_S), generator=g),
+            torch.randint(0, cfg.vocab, (1, SHARD_S), generator=g))
+
+
+def _shards_run(torch, cfg, mesh, prompt, cache_len, steps, pol,
+                count_flops):
+    """``prompt`` prefilled and ``steps`` greedy decode steps of ``cfg``
+    on ``mesh`` (a DeviceMesh, or None for one rank) from the seeded
+    weights under ``pol``: every step's logits (whole, on the host) and
+    greedy tokens, IAAT launches and seconds a decode step, the kernel's
+    local shapes; with ``count_flops``, the step counter's matmul FLOPs
+    of one more decode step under ``library``."""
+    from repro_torch import api
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import iaat_gemm
+    from repro_torch.launch.step_analyzer import StepCounter
+    from repro_torch.models import registry
+    from repro_torch.parallel import rules as R, spmd
+    from repro_torch.parallel.ctx import activation_axes, activation_sharding
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    B, S = prompt.shape
+    ctx, put = contextlib.nullcontext(), (lambda t: t)
+    if mesh is not None:
+        rules = R.make_rules(cfg, mesh)
+        params = rules.distribute(params, model.specs())
+        spec = R.data_specs(cfg, ShapeConfig("s", S, B, "prefill"), mesh,
+                            rules)["tokens"]
+
+        def put(t):
+            return rules.distribute(t, spec)
+        ctx = activation_sharding(mesh, activation_axes(
+            cfg, mesh, R.batch_spec(mesh, B)))
+    _free(torch)
+
+    def whole(t):
+        return (t.full_tensor() if spmd.is_dtensor(t) else t).float()
+    out = {"logits": [], "tokens": [], "iaat": [], "step_s": [],
+           "shapes": {}}
+    with ctx, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, put(prompt.to("cuda")), pol,
+                                  cache_len=cache_len)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        for step in range(steps + 1):
+            full = whole(lg)
+            nxt = full.argmax(-1)
+            out["logits"].append(full.cpu())
+            out["tokens"].append(nxt.cpu())
+            if step == steps:
+                break
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode(params, put(nxt[:, None]), cache, pol)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t0)
+            out["iaat"].append(iaat_gemm.launch_count("iaat_gemm"))
+            for k, v in _kernel_shapes().items():
+                out["shapes"][k] = out["shapes"].get(k, 0) + v
+        if count_flops:
+            lib = api.named_policy("library")
+            with StepCounter() as c:
+                model.decode(params, put(nxt[:, None]), cache, lib)
+            out["flops_library_decode"] = c.flops
+    del params, cache, lg
+    _free(torch)
+    return out
+
+
+def _shards_verdict(got, want, f32):
+    """One sharded run against the one-rank run: the worst logit error of
+    any step over the one-rank step's max |logit|, greedy tokens that
+    differ."""
+    err = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(got["logits"], want["logits"]))
+    diff = sum(int((a != b).sum()) for a, b in zip(got["tokens"],
+                                                   want["tokens"]))
+    ok = err <= SHARD_TOL and diff == 0 if f32 else True
+    return {"logit_rel": err, "tokens_differ": diff, "ok": ok}
+
+
+def _shards_rank(rank, world, prompts):
+    """One rank of the serve shards phase: the B 4 runs on both meshes in
+    f32 (with the library FLOPs of one decode step) and bf16, the B 1
+    split-slot run on 2 x 1 in f32; then, on rank 0 while rank 1 waits,
+    the one-rank runs and the verdicts; then each rank in turn holds the
+    IAAT kernel against its plain version at the local shapes it
+    launched."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch import api, configs
+    from repro_torch.launch import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    keep_lib = _staged_all_gather(torch)
+    pol = api.Policy(backend="auto").replace(kernels="library")
+    api.install(pol)
+    base = configs.get_config("olmo-1b")
+    cfgs = {dt: dataclasses.replace(base, dtype=dt)
+            for dt in ("float32", "bfloat16")}
+    short, long_ = prompts
+    runs = {}
+    for shape in SHARD_MESHES:
+        mesh = mesh_mod.make_mesh(shape, ("data", "model"), "cuda")
+        for dt, cfg in cfgs.items():
+            runs[(shape, dt, SHARD_B)] = _shards_run(
+                torch, cfg, mesh, short, SHARD_CACHE, SHARD_STEPS, pol,
+                dt == "float32")
+    mesh = mesh_mod.make_mesh((2, 1), ("data", "model"), "cuda")
+    runs[((2, 1), "float32", 1)] = _shards_run(
+        torch, cfgs["float32"], mesh, long_, SHARD_LONG, SHARD_LONG_STEPS,
+        pol, False)
+    out = {"rank": rank, "mesh_s": time.perf_counter() - t_phase,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if rank == 0:
+        one = {(dt, B): _shards_run(torch, cfgs[dt], None, p, c, n, pol,
+                                    False)
+               for dt, B, p, c, n in (
+                   ("float32", SHARD_B, short, SHARD_CACHE, SHARD_STEPS),
+                   ("bfloat16", SHARD_B, short, SHARD_CACHE, SHARD_STEPS),
+                   ("float32", 1, long_, SHARD_LONG, SHARD_LONG_STEPS))}
+        out["verdict"] = {k: _shards_verdict(r, one[(k[1], k[2])],
+                                             k[1] == "float32")
+                          for k, r in runs.items()}
+        out["one_rank"] = {k: {n: v for n, v in r.items()
+                               if n not in ("logits", "tokens")}
+                           for k, r in one.items()}
+    out["runs"] = {k: {n: v for n, v in r.items()
+                       if n not in ("logits", "tokens")}
+                   for k, r in runs.items()}
+    dist.barrier()
+    shapes = sorted({tuple(map(int, k.split("x")))
+                     for r in runs.values() for k in r["shapes"]})
+    out["rows"] = []
+    for r in range(world):                 # one rank at a time on the card
+        if r == rank:
+            for M, K, N in shapes:
+                tied = N * world == base.vocab_padded or \
+                    N == base.vocab_padded
+                out["rows"].append(_iaat_row(
+                    torch, M, K, N, tied and K == base.d_model,
+                    f"serve shards rank {rank}"))
+        dist.barrier()
+    out["staged"] = dict(_STAGED)
+    out["phase_s"] = time.perf_counter() - t_phase
+    del keep_lib
+    return out
+
+
+def phase_serve_shards(torch, cfg):
+    """olmo-1b (``cfg``) served on two ranks of the one card (gloo), on
+    the 1 x 2 and the 2 x 1 mesh and split-slot at B 1, against one rank
+    from the same weights: see ``_shards_rank``.  The dry run's
+    fake-world meta count of one decode step on each mesh is worked out
+    here first (no process group is up) and held against rank 0's count
+    on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh as mesh_mod
+    t0 = time.perf_counter()
+    meta = {shape: dryrun.count_step(
+        cfg, ShapeConfig("serve shards", SHARD_CACHE, SHARD_B, "decode"),
+        mesh_mod.mesh_shape(shape, ("data", "model"))).flops
+        for shape in SHARD_MESHES}
+    _free(torch)
+    ranks = mesh_mod.spawn(_shards_rank, 2, _shard_prompts(cfg),
+                           timeout=900)
+    verdict = ranks[0]["verdict"]
+    for r in ranks:
+        for (shape, dt, B), run in r["runs"].items():
+            log(f"serve shards rank {r['rank']} {shape[0]}x{shape[1]} {dt} "
+                f"B{B}: prefill {run['prefill_s']:.3f} s, decode step s "
+                f"{[round(x, 4) for x in run['step_s']]}, IAAT launches a "
+                f"decode step {run['iaat']}, local MxKxN: "
+                + ", ".join(f"{k} ({v} calls)" for k, v in
+                            sorted(run["shapes"].items())))
+        log(f"serve shards rank {r['rank']}: peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, staged_all_gather "
+            f"{r['staged']['calls']} calls {r['staged']['bytes']} bytes, "
+            f"runs {r['mesh_s']:.1f} s, phase {r['phase_s']:.1f} s")
+    for (dt, B), run in ranks[0]["one_rank"].items():
+        log(f"serve shards one rank {dt} B{B}: prefill "
+            f"{run['prefill_s']:.3f} s, decode step s "
+            f"{[round(x, 4) for x in run['step_s']]}, IAAT launches a "
+            f"decode step {run['iaat']}")
+    for (shape, dt, B), v in verdict.items():
+        log(f"serve shards {shape[0]}x{shape[1]} {dt} B{B} against one "
+            f"rank: logits {v['logit_rel']:.3g} of max|logit| (tol "
+            f"{SHARD_TOL if dt == 'float32' else 'printed'}), greedy tokens "
+            f"differing {v['tokens_differ']} of "
+            f"{(SHARD_STEPS + 1 if B > 1 else SHARD_LONG_STEPS + 1) * B}")
+    flops = {shape: (meta[shape], ranks[0]["runs"][(shape, "float32",
+                                                     SHARD_B)]
+                     ["flops_library_decode"]) for shape in SHARD_MESHES}
+    for shape, (m, c) in flops.items():
+        log(f"serve shards {shape[0]}x{shape[1]}: one decode step's matmul "
+            f"FLOPs under library, rank 0: {m} (dry run, fake world, meta) "
+            f"against {c} on the card")
+    bad = [k for k, v in verdict.items() if not v["ok"]]
+    no_kernel = [(r["rank"], k) for r in ranks
+                 for k, run in r["runs"].items() if min(run["iaat"]) < 1]
+    off = [s for s, (m, c) in flops.items() if m != c or c <= 0]
+    if bad or no_kernel or off:
+        raise AssertionError(f"serve shards: verdicts {bad}, no IAAT "
+                             f"launch {no_kernel}, FLOPs {flops}")
+    rows = [row for r in ranks for row in r["rows"]]
+    log(f"serve shards: {time.perf_counter() - t0:.1f} s")
+    key = "{}x{} {} B{}".format
+    return {"ranks": [{k: (v if k != "runs" else
+                           {key(*s, dt, B): run
+                            for (s, dt, B), run in v.items()})
+                       for k, v in r.items() if k not in ("verdict",
+                                                          "one_rank")}
+                      for r in ranks],
+            "one_rank": {f"{dt} B{B}": run for (dt, B), run in
+                         ranks[0]["one_rank"].items()},
+            "verdict": {key(*s, dt, B): v
+                        for (s, dt, B), v in verdict.items()},
+            "flops": {f"{s[0]}x{s[1]}": v for s, v in flops.items()},
+            "rows": rows}
+
+
 def _mixtral_cfg():
     import dataclasses
     from repro_torch import configs
@@ -5111,7 +5495,6 @@ def main():
     try:
         report["card"] = timed("card", phase_card)
         report["flash_build"] = timed("build", phase_build)
-        dry = start_dryrun()
         max_err = timed("check", phase_check, torch)
         report["concurrent_split"] = timed(
             "concurrent split", phase_concurrent_split, torch, mcfg)
@@ -5132,6 +5515,10 @@ def main():
                                        torch, params, report["card"])
         report["trace"] = timed("trace", phase_trace, torch,
                                 report["online_serve"], report["card"])
+        # after the phases that time launches on the card against each
+        # other (the online tuner's verdicts): the CPU subprocess adds
+        # host load while it counts
+        dry = start_dryrun()
         report["forward"] = timed("forward", phase_forward, torch, cfg,
                                   params)
         del params
@@ -5144,6 +5531,8 @@ def main():
         _free(torch)
         report["mesh_train"] = timed("mesh train", phase_mesh_train, torch,
                                      cfg)
+        report["serve_shards"] = timed("serve shards", phase_serve_shards,
+                                       torch, cfg)
         grouped_err, ragged_launches = timed("grouped check",
                                              phase_grouped_check, torch, mcfg)
         report["moe_serve"], params = timed(
@@ -5251,15 +5640,15 @@ def main():
         # families, then enc-dec and forward_train, then training)
         more = slice_rows.get(e["name"], []) + encdec_rows.get(
             e["name"], []) + train_rows.get(e["name"], []) + (
-            report["mesh_train"]["rows"] if e["name"] == "iaat_gemm"
-            else [])
+            report["mesh_train"]["rows"] + report["serve_shards"]["rows"]
+            if e["name"] == "iaat_gemm" else [])
         if more:
             e["slice_shapes"] = more
     report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows \
         + [r for rs in slice_rows.values() for r in rs] \
         + [r for rs in encdec_rows.values() for r in rs] \
         + [r for rs in train_rows.values() for r in rs] \
-        + report["mesh_train"]["rows"]
+        + report["mesh_train"]["rows"] + report["serve_shards"]["rows"]
     report["seconds"] = time.perf_counter() - t_start
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

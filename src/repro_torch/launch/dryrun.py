@@ -7,35 +7,43 @@ batch on the meta device (shapes and dtypes, no storage), runs the
 cell's step once under the library policy and the activation context of
 the production mesh, and reports:
 
-  * ``memory_analysis.argument_size_in_bytes``: one device's bytes of the
-    step's arguments, from the sharding rules' local shapes (a train
-    step: the f32 master, both moments and the int32 step, as a
-    checkpoint holds them, plus tokens and labels; serving: the weights,
-    every floating leaf in bf16 as the reference deploys them, plus
-    tokens and, for decode, the cache).  The port keeps a cache's ``pos``
-    on the host, where the reference holds a 4-byte device scalar.  Its
-    serving module keeps the router, the norms and the SSM vectors in
-    f32: ``port_arguments`` counts the weights so.  Temporaries are not
-    estimated (None).
+  * the step as a real sharded step: a fake process group of the mesh's
+    size comes up in this process (:func:`fake_world`, torn down after
+    the cell), the state or the serving weights, the batch and a decode
+    cell's cache are meta DTensors laid out by the rules (the
+    reference's ``in_shardings``: ``Rules.distribute``, ``data_specs``,
+    ``cache_shardings``), and a prefill returns its cache in the cache
+    layout (the reference's ``out_shardings``).  A train cell runs the
+    train step, a prefill cell ``model.prefill``, a decode cell one
+    ``model.decode`` step over a full cache.  The counter counts rank 0's
+    local ops, so the FLOPs, bytes and memory are one rank's, the work a
+    rule's fallback replicates included, and the collectives DTensor and
+    the split softmax emit are counted by kind with their bytes
+    (``coll_bytes``, ``collective_s``).  On a mesh of one rank (the
+    anchor) the step runs on plain meta tensors.
+  * ``memory_analysis`` (``step_stats.memory_analysis_terms``):
+    ``argument_size_in_bytes``, one device's bytes of the step's
+    arguments from the rules' local shapes (a train step: the f32
+    master, both moments and the int32 step, as a checkpoint holds them,
+    plus tokens and labels; serving: the weights, every floating leaf in
+    bf16 as the reference deploys them, plus tokens and, for decode, the
+    cache).  The port keeps a cache's ``pos`` on the host, where the
+    reference holds a 4-byte device scalar; its serving module keeps the
+    router, the norms and the SSM vectors in f32: ``port_arguments``
+    counts the weights so.  The output and alias bytes of what the step
+    returned, ``total_nonalias`` (the port's arguments plus the step's
+    peak of live allocations, measured by the counter) and the
+    temporaries.
   * ``analyzer``: the step's matmul FLOPs and operand + output bytes,
     counted per aten op (``step_analyzer.StepCounter``), and
-    ``roofline`` (``step_stats.Roofline``) on them.  A train cell runs
-    as a real sharded step: a fake process group of the mesh's size
-    comes up in this process (:func:`fake_world`, torn down after the
-    cell), the state and the batch are meta DTensors laid out by the
-    rules, and the counter counts rank 0's local ops, so the FLOPs and
-    bytes are one rank's, the work a rule's fallback replicates
-    included, and the collectives DTensor issues are counted by kind
-    with their bytes (``coll_bytes``, ``collective_s``).  A prefill or
-    decode cell runs on one rank, as the port serves (the reference's
-    serve launcher has no mesh): its per-device counts are the global
-    count / devices, an ideal split, with no collectives.
+    ``roofline`` (``step_stats.Roofline``) on them.
   * ``model_flops_per_dev``: the reference's 6·N·D (2·N·D to serve).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \\
-        --shape train_4k --mesh single
+        --shape decode_32k --mesh single
 
-A cell that fails is logged with its traceback and the run goes on.
+A cell that fails is logged with its traceback and the run goes on; it
+is never counted again some other way.
 """
 from __future__ import annotations
 
@@ -200,57 +208,66 @@ def fake_world(mesh):
         dist.destroy_process_group()
 
 
-def _sharded_train(model, shape, mesh, accum: int, counter) -> None:
-    """One train step over ``mesh`` (a MeshShape of several ranks) as a
-    real sharded step on meta DTensors, counted as rank 0's."""
+def _run_step(model, shape, mesh, accum: int, counter) -> None:
+    """The cell's step on meta tensors over ``mesh``: a ``DeviceMesh``
+    (every leaf a DTensor laid out by the rules) or a one-rank
+    :class:`R.MeshShape` (plain tensors), counted by ``counter`` (its
+    output and alias bytes recorded: ``StepCounter.returned``)."""
     cfg = model.cfg
-    with fake_world(mesh) as dm:
-        rules = R.make_rules(cfg, dm)
-        state = rules.distribute(
-            train_loop.init_train_state(model, torch.Generator(), "meta"),
-            train_loop.train_state_specs(model))
-        dspecs = R.data_specs(cfg, shape, dm, rules)
-        batch = {k: rules.distribute(_meta(s), dspecs[k])
-                 for k, s in input_structs(cfg, shape).items()}
-        act = activation_axes(cfg, dm, R.batch_spec(dm, shape.global_batch))
-        step = train_loop.make_train_step(
-            model, train_loop.TrainConfig(accum_steps=accum), LIBRARY)
-        with activation_sharding(dm, act), counter:
-            step(state, batch)
+    sharded = not isinstance(mesh, R.MeshShape)
+    rules = R.make_rules(cfg, mesh)
+    gen = torch.Generator()
+
+    def place(tree, specs):
+        return rules.distribute(tree, specs) if sharded else tree
+    dspecs = R.data_specs(cfg, shape, mesh, rules)
+    batch = {k: place(_meta(s), dspecs[k])
+             for k, s in input_structs(cfg, shape).items()}
+    act = activation_axes(cfg, mesh, R.batch_spec(mesh, shape.global_batch))
+    with activation_sharding(mesh, act):
+        if shape.kind == "train":
+            step = train_loop.make_train_step(
+                model, train_loop.TrainConfig(accum_steps=accum), LIBRARY)
+            args = (place(train_loop.init_train_state(model, gen, "meta"),
+                          train_loop.train_state_specs(model)), batch)
+            with counter:
+                out = step(*args)
+            counter.returned(args, out)
+            return
+        params = place(model.init(gen, "meta"), model.specs())
+        extra = {k: v for k, v in batch.items() if k.endswith("embeds")}
+        with torch.no_grad():
+            if shape.kind == "prefill":
+                args = (params, batch)
+                with counter:
+                    out = model.prefill(params, batch["tokens"], LIBRARY,
+                                        **extra)
+            else:
+                cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                         torch.bfloat16, device="meta",
+                                         mesh=mesh if sharded else None)
+                args = (params, batch, cache)
+                with counter:
+                    out = model.decode(params, batch["tokens"], cache,
+                                       LIBRARY)
+    counter.returned(args, out)
 
 
 def count_step(cfg, shape, mesh, *, accum: int = 1) -> StepCounter:
     """The cell's step run once on the meta device under the library
     policy and the mesh's activation context, counted per aten op: a
-    train step (``accum`` microbatches; on a mesh of several ranks a
-    sharded step, counted as rank 0's: :func:`_sharded_train`), a
-    prefill, or one decode step over a full cache (on one rank)."""
+    train step (``accum`` microbatches), a prefill, or one decode step
+    over a full cache.  On a mesh of several ranks a real sharded step
+    under a fake process group of its size, counted as rank 0's
+    (:func:`_run_step`)."""
     model = build_model(cfg)
-    gen = torch.Generator()
-    batch = {k: _meta(s) for k, s in input_structs(cfg, shape).items()}
-    act = activation_axes(cfg, mesh, R.batch_spec(mesh, shape.global_batch))
     counter = StepCounter()
-    if shape.kind == "train" and mesh.size() > 1:
-        with api.using(LIBRARY):
-            _sharded_train(model, shape, mesh, accum, counter)
-        return counter
-    with api.using(LIBRARY), activation_sharding(mesh, act):
-        if shape.kind == "train":
-            step = train_loop.make_train_step(
-                model, train_loop.TrainConfig(accum_steps=accum), LIBRARY)
-            state = train_loop.init_train_state(model, gen, "meta")
-            with counter:
-                step(state, batch)
-            return counter
-        params = model.init(gen, "meta")
-        extra = {k: v for k, v in batch.items() if k.endswith("embeds")}
-        with counter, torch.no_grad():
-            if shape.kind == "prefill":
-                model.prefill(params, batch["tokens"], LIBRARY, **extra)
-            else:
-                cache = model.init_cache(shape.global_batch, shape.seq_len,
-                                         torch.bfloat16, device="meta")
-                model.decode(params, batch["tokens"], cache, LIBRARY)
+    with api.using(LIBRARY):
+        if mesh.size() > 1:
+            with fake_world(mesh) as dm:
+                _run_step(model, shape, dm, accum, counter)
+        else:
+            _run_step(model, shape, mesh, accum, counter)
     return counter
 
 
@@ -277,25 +294,20 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
             (arch, shape_name), ACCUM.get(shape_name, 1))
     counter = count_step(cfg, shape, mesh, accum=acc or 1)
     mf = model_flops(cfg, shape) / n_dev
-    per_rank = shape.kind == "train" and n_dev > 1
-    if per_rank:
-        rl = step_stats.Roofline(flops=counter.flops,
-                                 hbm_bytes=counter.bytes, model_flops=mf,
-                                 coll_bytes=counter.coll_bytes)
-    else:
-        rl = step_stats.Roofline(flops=counter.flops / n_dev,
-                                 hbm_bytes=counter.bytes / n_dev,
-                                 model_flops=mf)
-    ma = step_stats.memory_analysis_terms(args)
-    ma["port_arguments"] = port
+    rl = step_stats.Roofline(
+        flops=counter.flops, hbm_bytes=counter.bytes, model_flops=mf,
+        coll_bytes=counter.coll_bytes if n_dev > 1 else None)
+    ma = step_stats.memory_analysis_terms(
+        args, port, peak_live=counter.peak_live,
+        output=counter.output_bytes, alias=counter.alias_bytes)
     rec = {
         "arch": arch, "shape": shape_name, "mesh": name, "status": "ok",
         "devices": n_dev, "count_s": round(time.time() - t0, 2),
         "memory_analysis": ma, "model_flops_per_dev": mf,
         "roofline": rl.as_dict(), "analyzer": counter.as_dict(),
         "per_device": (f"rank 0 of {n_dev}: its local ops in a sharded "
-                       "step under a fake process group") if per_rank
-        else "ideal: the global count / devices (one rank's step)",
+                       "step under a fake process group") if n_dev > 1
+        else "the one rank's step",
         "rules_fallbacks": R.make_rules(cfg, mesh, fsdp=fsdp).fallbacks,
     }
     if acc is not None:
@@ -354,6 +366,7 @@ def main(argv=None) -> Dict[str, Any]:
                              f" frac={r['roofline_fraction']:.3f}"
                              f" args/dev="
                              f"{ma['argument_size_in_bytes'] / 2**30:.3f}GiB"
+                             f" mem/dev={ma['total_nonalias'] / 2**30:.2f}GiB"
                              f" count={rec['count_s']}s")
                 elif status == "error":
                     extra = " " + rec["error"][:200]

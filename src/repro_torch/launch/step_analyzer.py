@@ -30,6 +30,21 @@ one rank's.  The collectives DTensor issues (``_c10d_functional``) are
 counted apart, by kind, with the bytes of their outputs on this rank
 (the reference's ``collective_bytes``), and not as memory traffic.
 
+The counter also follows the step's memory (the reference's
+``memory_analysis``, which XLA reports from its buffer assignment): every
+storage an op allocates (an output that shares no input's storage) is
+live from that op until the last tensor on it is gone (a weak reference
+on the storage, whose callback runs when its memory is released), so
+``peak_live`` is the most bytes the step held at once beyond what it was
+given: the arguments are allocated before the counter starts, and views
+and in-place ops allocate nothing.  Meta storages have their sizes, so
+the peak on the meta device is the peak of the same step on real
+tensors (as far as eager torch allocates through the dispatcher: a
+kernel's own scratch is not seen, nor the caching allocator's rounding).
+On DTensors the storages are this rank's local ones.
+:func:`output_terms` gives the returned leaves' bytes and the part of
+them that shares an argument's storage (updated in place).
+
 The IAAT, flash, grouped and SSD kernels launch through ``ctypes`` and
 are not aten ops, so the counter is meant for a step under the library
 policy (``api.named_policy("library")``), as the reference's dry run
@@ -39,7 +54,10 @@ from __future__ import annotations
 
 import collections
 import contextlib
-from typing import Dict, List
+import dataclasses
+import functools
+import weakref
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -76,6 +94,7 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "broadcast")
 
 _ACTIVE: List["StepCounter"] = []
+_FAKE = torch._C._TorchDispatchModeKey.FAKE
 
 
 def trip_counting() -> bool:
@@ -107,13 +126,54 @@ def _bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    """Every tensor of a step's arguments or results (dicts, lists,
+    tuples, dataclasses such as a cache, modules' parameters and
+    buffers), a DTensor as this rank's local tensor."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, DTensor):
+        return [tree._local_tensor]
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, nn.Module):
+        return _tensors(list(tree.parameters()) + list(tree.buffers()))
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def output_terms(arguments, outputs) -> Tuple[int, int]:
+    """(bytes of the tensors of ``outputs``, the part of them that shares
+    a storage with a tensor of ``arguments``): the reference's output and
+    alias sizes, this rank's."""
+    held = {_storage_key(t) for t in _tensors(arguments)}
+    out = alias = 0
+    for t in _tensors(outputs):
+        n = t.numel() * t.element_size()
+        out += n
+        if _storage_key(t) in held:
+            alias += n
+    return out, alias
+
+
 class StepCounter(TorchDispatchMode):
     """``with StepCounter() as c: step()`` -> ``c.flops`` (matmul family),
     ``c.bytes`` (operands + outputs), ``c.ops`` (aten ops seen),
     ``c.dots`` (matmul-family ops), ``c.flops_by_op``, and the
     collectives: ``c.coll_bytes`` and ``c.coll_count`` by kind (one
-    rank's, on DTensors).  ``trip_counts=False`` has the weighted loops
-    run every iteration (the same counts, one op at a time)."""
+    rank's, on DTensors), and the memory: ``c.live`` bytes allocated in
+    the step and not yet released, ``c.peak_live`` their most.
+    ``trip_counts=False`` has the weighted loops run every iteration (the
+    same counts, one op at a time)."""
 
     def __init__(self, trip_counts: bool = True):
         super().__init__()
@@ -128,6 +188,39 @@ class StepCounter(TorchDispatchMode):
         self.flops_by_op: Dict[str, int] = collections.Counter()
         self.coll_bytes: Dict[str, int] = {k: 0 for k in KINDS}
         self.coll_count: Dict[str, int] = {k: 0 for k in KINDS}
+        self.live = 0
+        self.peak_live = 0
+        self._storages: Dict[int, weakref.ref] = {}
+        self.output_bytes: Optional[int] = None
+        self.alias_bytes: Optional[int] = None
+
+    def returned(self, arguments, outputs) -> None:
+        """Record the step's output and alias bytes (:func:`output_terms`
+        of its ``arguments`` and what it returned)."""
+        self.output_bytes, self.alias_bytes = output_terms(arguments,
+                                                           outputs)
+
+    def _release(self, key: int, n: int, _ref) -> None:
+        self._storages.pop(key, None)
+        self.live -= n
+
+    def _allocated(self, args, kwargs, out) -> None:
+        """Start following every storage of ``out`` that no input shares."""
+        new = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+        if not new:
+            return
+        ins = {_storage_key(t) for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)}
+        for t in new:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key in ins or key in self._storages:
+                continue
+            n = st.nbytes()
+            self._storages[key] = weakref.ref(st, functools.partial(
+                self._release, key, n))
+            self.live += n
+            self.peak_live = max(self.peak_live, self.live)
 
     def __enter__(self):
         _ACTIVE.append(self)
@@ -141,7 +234,12 @@ class StepCounter(TorchDispatchMode):
         if any(_is_dtensor_type(t) for t in types):
             return NotImplemented        # DTensor splits it: count locals
         kwargs = kwargs or {}
+        if torch._C._get_dispatch_mode(_FAKE) is not None:
+            # DTensor's sharding propagation runs the op on fake tensors of
+            # the global shapes: no work, no memory of this rank
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        self._allocated(args, kwargs, out)
         w = self.weight
         pkt = func.overloadpacket
         if getattr(pkt, "_qualified_op_name", "").startswith(
@@ -166,4 +264,7 @@ class StepCounter(TorchDispatchMode):
         return {"flops": self.flops, "bytes": self.bytes, "ops": self.ops,
                 "dots": self.dots, "flops_by_op": dict(self.flops_by_op),
                 "coll_bytes": dict(self.coll_bytes),
-                "coll_count": dict(self.coll_count)}
+                "coll_count": dict(self.coll_count),
+                "peak_live": self.peak_live,
+                "output_bytes": self.output_bytes,
+                "alias_bytes": self.alias_bytes}

@@ -6,17 +6,19 @@ data-sheet figures for the H100 SXM5 80GB at 700 W, the card every chip
 run of the port uses.  They are data-sheet figures, not measurements.
 
 ``coll_bytes`` are one rank's collective bytes by kind (the outputs of
-the ``_c10d_functional`` ops DTensor issues, counted by
-``step_analyzer.StepCounter``: the reference's ``collective_bytes``),
+the ``_c10d_functional`` ops DTensor and the split softmax emit, counted
+by ``step_analyzer.StepCounter``: the reference's ``collective_bytes``),
 and ``collective_s`` is their total over ``NVLINK_BW``, 450 GB/s each
 way a card on the H100 SXM5's fourth-generation NVLink inside a node
 (900 GB/s both ways: NVIDIA's data sheet, not a measurement; the
-reference divides by its ICI link rate).  A step that runs on one rank
-(a serving cell: the port serves on one rank, as the reference's serve
-launcher has no mesh) has no collectives and leaves both None, with the
-reason.  The memory terms are the arguments' per-device bytes, from the
-sharding rules' local shapes (``parallel/rules.py``); temporaries are
-not estimated (None, with the reason), because nothing is compiled.
+reference divides by its ICI link rate).  A step on a mesh of one rank
+has no collectives and leaves both None, with the reason.
+
+The memory terms are the reference's ``memory_analysis`` keys, one
+rank's (:func:`memory_analysis_terms`): the arguments from the sharding
+rules' local shapes (``parallel/rules.py``), the output and alias bytes
+of what the step returned, and the temporaries from the live bytes the
+counter followed through the step.
 """
 from __future__ import annotations
 
@@ -27,14 +29,14 @@ from repro_torch.core.cost import HBM_BW, PEAK_FLOPS_BF16
 
 PEAK_FLOPS = PEAK_FLOPS_BF16
 
-TEMP_UNKNOWN = ("not estimated: eager torch allocates temporaries op by "
-                "op, and nothing is compiled that could report them")
+TEMP_NOTE = ("total_nonalias = the port's argument bytes (port_arguments) "
+             "+ the step's peak of live allocations (step_analyzer); "
+             "temp = total_nonalias - arguments - output + alias")
 #: per-card NVLink bandwidth each way, H100 SXM5 (data sheet)
 NVLINK_BW = 450e9
 NVLINK_NOTE = ("collective_s = coll_bytes total / 450e9 B/s: NVLink 4 "
                "each way a card, H100 SXM5 data sheet")
-COLL_ONE_RANK = ("none: the step runs on one rank (the port serves on one "
-                 "rank); per-device counts are the global count / devices")
+COLL_ONE_RANK = "none: a mesh of one rank"
 
 
 @dataclasses.dataclass
@@ -96,10 +98,26 @@ class Roofline:
         }
 
 
-def memory_analysis_terms(arguments: Dict[str, int]) -> Dict:
-    """The reference's ``memory_analysis`` keys that have a counterpart:
-    ``argument_size_in_bytes`` per device (the sum of ``arguments``, bytes
-    by argument group), ``temp_size_in_bytes`` None with the reason."""
+def memory_analysis_terms(arguments: Dict[str, int], port: Dict[str, int],
+                          *, peak_live: int, output: int,
+                          alias: int) -> Dict:
+    """The reference's ``memory_analysis`` keys, one device's:
+    ``argument_size_in_bytes`` (the sum of ``arguments``, bytes by
+    argument group as the reference counts them; ``port`` as the port
+    stores them), ``output_size_in_bytes`` and ``alias_size_in_bytes`` (the
+    step's returned leaves, and those of them that share an argument's
+    storage), ``total_nonalias``, measured: the port's argument bytes plus
+    the step's peak of live allocations (``peak_live``), and
+    ``temp_size_in_bytes`` = total_nonalias - arguments - output + alias,
+    the reference's identity (``hlo_stats.memory_analysis_terms``) read
+    backwards, the arguments as the port holds them.  The reference's
+    ``generated_code_size_in_bytes`` has no counterpart and is left out."""
+    held = int(sum(port.values()))
+    total = held + int(peak_live)
     return {"argument_size_in_bytes": int(sum(arguments.values())),
             "arguments": {k: int(v) for k, v in arguments.items()},
-            "temp_size_in_bytes": None, "temp_note": TEMP_UNKNOWN}
+            "port_arguments": {k: int(v) for k, v in port.items()},
+            "output_size_in_bytes": int(output),
+            "alias_size_in_bytes": int(alias),
+            "temp_size_in_bytes": total - held - int(output) + int(alias),
+            "total_nonalias": total, "temp_note": TEMP_NOTE}

@@ -64,12 +64,16 @@ def rmsnorm(x: torch.Tensor, w: Optional[torch.Tensor],
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """x: (B, H, S, D); positions: (B, S) or (S,).  On a DTensor
-    (batch and heads sharded) it runs on the local heads, ``positions``
-    (S,) the same on every rank."""
+    (batch and heads sharded) it runs on the local heads, each rank
+    reading its own rows of ``positions`` (B, S), a plain tensor the same
+    on every rank, or ``positions`` (S,) whole."""
     if spmd.is_dtensor(x):
-        if positions.ndim != 1:
-            raise ValueError("rope on a DTensor takes positions (S,)")
         x = spmd.settle(x)
+        if positions.ndim == 2:
+            from torch.distributed.tensor import Replicate
+            rows = tuple(p if p.is_shard(0) else Replicate()
+                         for p in x.placements)
+            positions = spmd.local_slice(positions, x.device_mesh, rows)
         return spmd.local(functools.partial(rope, positions=positions,
                                             theta=theta), x.placements, x)
     D = x.shape[-1]

@@ -37,6 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.common import mm, remat, rmsnorm, stack_specs
+from repro_torch.parallel import rules as R
+from repro_torch.parallel import spmd
 
 #: the families this module serves
 FAMILIES = ("encdec", "audio")
@@ -232,10 +234,11 @@ def _decode_prompt(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
     for i, blk in enumerate(params.dec_blocks):
         x, k, v, ck, cv = remat(cfg, body, x, blk)
         if cache is not None:
-            cache.self_k[i, :, :, :S] = k
-            cache.self_v[i, :, :, :S] = v
-            cache.cross_k[i] = ck
-            cache.cross_v[i] = cv
+            first = (i, slice(None), slice(None), slice(0, S))
+            spmd.write(cache.self_k, first, k)
+            spmd.write(cache.self_v, first, v)
+            spmd.write(cache.cross_k, (i,), ck)
+            spmd.write(cache.cross_v, (i,), cv)
     return x
 
 
@@ -274,18 +277,23 @@ class EncDecCache:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, src_len: int,
                dtype=torch.bfloat16, prefill_len: int = 0,
-               device="cuda") -> EncDecCache:
+               device="cuda", mesh=None) -> EncDecCache:
     """Zero cache for ``batch`` sequences of up to ``seq_len`` decoder
     positions (``prefill_len`` of them already filled) over ``src_len``
-    encoder frames."""
+    encoder frames; on a ``DeviceMesh`` ``mesh`` DTensors in the rules'
+    cache layout, as ``lm.init_cache``."""
     _check_family(cfg)
     Hkv, hd, Ld = cfg.n_kv_heads_padded, cfg.head_dim_, cfg.n_layers
+    pl = R.cache_placements(cfg, mesh, batch) if mesh is not None else {}
 
-    def zeros(n):
-        return torch.zeros((Ld, batch, Hkv, n, hd), dtype=dtype,
-                           device=device)
-    return EncDecCache(prefill_len, zeros(seq_len), zeros(seq_len),
-                       zeros(src_len), zeros(src_len))
+    def zeros(name, n):
+        shape = (Ld, batch, Hkv, n, hd)
+        if mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return spmd.zeros(shape, dtype, device, mesh, pl[name])
+    return EncDecCache(prefill_len, zeros("self_k", seq_len),
+                       zeros("self_v", seq_len), zeros("cross_k", src_len),
+                       zeros("cross_v", src_len))
 
 
 def prefill(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
@@ -297,7 +305,8 @@ def prefill(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
     B, S = tokens.shape
     cache = init_cache(cfg, B, cache_len or S, src_embeds.shape[1],
                        cfg.compute_dtype, prefill_len=S,
-                       device=tokens.device)
+                       device=tokens.device, mesh=tokens.device_mesh
+                       if spmd.is_dtensor(tokens) else None)
     x = _decode_prompt(params, cfg, be, tokens, src_embeds, cache)
     return _unembed(params, cfg, x[:, -1:], be)[:, 0], cache
 
@@ -308,7 +317,7 @@ def decode(params: EncDec, cfg: ModelConfig, be: Policy, tokens,
     K/V into the cache in place and attends the cached cross K/V (the
     flash kernel at Sq = 1 under every policy but the forced library);
     returns (logits (B, Vp), the cache at pos + 1)."""
-    x = params.embed[tokens].to(cfg.compute_dtype)
+    x = lm._embed_tokens(params, cfg, tokens)
     for i, blk in enumerate(params.dec_blocks):
         x, _ = _dec_block(blk, x, (cache.cross_k[i], cache.cross_v[i]), cfg,
                           be, kv=(cache.self_k[i], cache.self_v[i]),

@@ -124,6 +124,79 @@ def decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
+def split_decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
+                        scale: float, ring: int, first: int, groups):
+    """:func:`decode_attend` over one rank's share of a ring buffer split
+    along its slots: ``k_buf``/``v_buf`` (B, Hkv, W_local, hd) hold the
+    global slots ``first .. first + W_local`` of a ``ring``-slot buffer,
+    and ``groups`` are the process groups (``(DeviceMesh, mesh dim)``)
+    over which the slots are split.  The split softmax: each rank masks
+    its slots by their positions p_s, takes its max of the logits, then
+    the all-reduced max; its sum of exp(logit - max), then the all-reduced
+    sum; its probabilities (normalised by the global sum and rounded to
+    the cache's dtype, as the whole-buffer softmax rounds them) times its
+    V, then the all-reduced sum.  Equal to the whole-buffer op to f32
+    rounding (the sums over slots are taken in another order)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def reduce(t, op):
+        for g in groups:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+        return t
+
+    B, H, _, hd = q.shape
+    Hkv, Wl = k_buf.shape[1], k_buf.shape[2]
+    rep = H // Hkv
+    s_idx = first + torch.arange(Wl, device=q.device)
+    p_s = pos - torch.remainder(pos - s_idx, ring)
+    ok = p_s >= 0
+    if window is not None:
+        ok &= p_s > pos - window
+    qf = q.reshape(B, Hkv, rep, hd)
+    logits = _f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
+    logits = torch.where(ok, logits,
+                         torch.tensor(float("-inf"), device=q.device))
+    # the token's own slot is valid on some rank, so the global max is
+    # finite; a rank whose slots are all masked adds exp(-inf) = 0
+    m = reduce(logits.amax(-1, keepdim=True), "max")
+    e = torch.exp(logits - m)
+    p = e / reduce(e.sum(-1, keepdim=True), "sum")
+    out = reduce(_f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype), v_buf),
+                 "sum")
+    return out.reshape(B, H, 1, hd).to(q.dtype)
+
+
+def _sharded_decode(q, k, v, k_buf, v_buf, pos: int, *,
+                    window: Optional[int], scale: float):
+    """One-token attention on DTensors: the token's K/V written into ring
+    slot pos % W of the cache's local shards (on the rank that owns the
+    slot, where the slots are split; the cache is never redistributed),
+    q laid out as the cache on its batch and kv-head dims and replicated
+    elsewhere, then :func:`decode_attend` on the local tensors, or, where
+    the cache's slots are split over mesh dims, :func:`split_decode_attend`
+    with its all-reduces over those dims.  The output is laid out as q."""
+    from torch.distributed.tensor import Replicate
+    mesh, W = k_buf.device_mesh, k_buf.shape[2]
+    slot = slice(pos % W, pos % W + 1)
+    spmd.write(k_buf, (slice(None), slice(None), slot), k)
+    spmd.write(v_buf, (slice(None), slice(None), slot), v)
+    cpl = tuple(k_buf.placements)
+    qpl = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate()
+                for p in cpl)
+    q = spmd.settle(q)
+    if tuple(q.placements) != qpl:
+        q = q.redistribute(mesh, qpl)
+    ql, kl, vl = q.to_local(), k_buf.to_local(), v_buf.to_local()
+    seq = [(mesh, j) for j, p in enumerate(cpl) if p.is_shard(2)]
+    if seq:
+        first = spmd.local_offset(k_buf.shape, mesh, cpl)[2]
+        y = split_decode_attend(ql, kl, vl, pos, window=window, scale=scale,
+                                ring=W, first=first, groups=seq)
+    else:
+        y = decode_attend(ql, kl, vl, pos, window=window, scale=scale)
+    return spmd.from_local(y, mesh, qpl, q.shape)
+
+
 def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
                  scale: float, window: Optional[int] = None,
                  decode_from=None):
@@ -194,7 +267,8 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
                caller's cache.
       decode:  ``kv_cache = (k_buf, v_buf)`` (B, Hkv, W, hd), ``pos`` the
                token's position; writes its K/V into ring slot pos % W
-               (in place), attends through :func:`decode_attend`; returns y.
+               (in place), attends through :func:`decode_attend` (on
+               DTensors :func:`_sharded_decode`); returns y.
       paged:   ``paged_kv = (k_pool, v_pool, block_table, q_pos (B, C),
                decode_from (B,) or None)``; writes the chunk's K/V into
                the pools through the block table (in place), attends over
@@ -242,6 +316,10 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
         pos_arr = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
         q = rope(q, pos_arr, cfg.rope_theta)
         k = rope(k, pos_arr, cfg.rope_theta)
+        if spmd.is_dtensor(k_buf):
+            y = _sharded_decode(q, k, v, k_buf, v_buf, pos, window=window,
+                                scale=scale)
+            return mm(_merge_heads(y), p.wo, be)
         slot = pos % k_buf.shape[2]
         k_buf[:, :, slot] = k[:, :, 0].to(k_buf.dtype)
         v_buf[:, :, slot] = v[:, :, 0].to(v_buf.dtype)
@@ -472,6 +550,15 @@ def _sharded_moe(p, x, be: Policy, cfg: ModelConfig, G: int):
         o, (sl, tp), T_loc, k), pl, out_buf, slot, top_p)
     if G > 1:
         yg = constrain(yg, "moe_group", None, None)
+        # groups split within a sequence (B smaller than the group shards:
+        # a microbatch cut from a gathered batch): the rows are whole on
+        # every rank, as x's were
+        ypl = yg.placements
+        if B % math.prod(yg.device_mesh.size(j)
+                         for j, q in enumerate(ypl) if q.is_shard(0)):
+            from torch.distributed.tensor import Replicate
+            yg = yg.redistribute(yg.device_mesh, tuple(
+                Replicate() if q.is_shard(0) else q for q in ypl))
     return yg.to(x.dtype).reshape(B, S, d), aux.mean()
 
 

@@ -47,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 from repro_torch.models.common import mm, remat, rmsnorm, stack_specs
+from repro_torch.parallel import rules as R
 from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain
 
@@ -556,24 +557,37 @@ def cache_buffer_len(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, prefill_len: int = 0,
-               device="cuda") -> LMCache:
+               device="cuda", mesh=None) -> LMCache:
     """Zero cache for ``batch`` sequences of up to ``seq_len`` positions,
-    ``prefill_len`` of them already filled."""
+    ``prefill_len`` of them already filled.  On a ``DeviceMesh`` ``mesh``
+    every tensor is a DTensor laid out as the rules lay out a cache
+    (``rules.cache_placements``: the reference's ``cache_shardings``),
+    each rank allocating its own shard."""
     _check_family(cfg)
+    pl = R.cache_placements(cfg, mesh, batch) if mesh is not None else {}
+
+    def zeros(name, shape, dt=dtype):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dt, device=device)
+        return spmd.zeros(shape, dt, device, mesh, pl[name])
+
     kv = (batch, cfg.n_kv_heads_padded, cache_buffer_len(cfg, seq_len),
           cfg.head_dim_)
     cache = LMCache(prefill_len)
+    L_ = cfg.n_layers
     if _recurrent(cfg):
-        conv, h = SSM.init_paged_state(cfg, batch, dtype, device)
-        L_ = cfg.n_layers
-        cache.conv = conv[None].repeat(L_, 1, 1, 1)
-        cache.ssm = h[None].repeat(L_, 1, 1, 1, 1)
+        s = cfg.ssm
+        cache.conv = zeros("conv", (L_, batch, s.d_conv - 1,
+                                    cfg.d_inner + 2 * s.d_state))
+        cache.ssm = zeros("ssm", (L_, batch, cfg.ssm_heads, s.head_dim,
+                                  s.d_state), torch.float32)
     else:
-        cache.attn_k, cache.attn_v = _zeros_kv((cfg.n_layers,) + kv, dtype,
-                                               device)
+        cache.attn_k = zeros("attn_k", (L_,) + kv)
+        cache.attn_v = zeros("attn_v", (L_,) + kv)
     if cfg.shared_attn_every:
-        cache.shared_k, cache.shared_v = _zeros_kv(
-            (_n_shared_apps(cfg),) + kv, dtype, device)
+        napps = _n_shared_apps(cfg)
+        cache.shared_k = zeros("shared_k", (napps,) + kv)
+        cache.shared_v = zeros("shared_v", (napps,) + kv)
     return cache
 
 
@@ -594,7 +608,16 @@ def _ring_layout(k, W: int):
 
 
 def _ring_pad(k, W: int, dtype):
-    """Ring layout, zero-padded to exactly W slots, in ``dtype``."""
+    """Ring layout, zero-padded to exactly W slots, in ``dtype``.  On a
+    DTensor it runs on each rank's rows and heads, the positions made
+    whole first where they are split (a redistribution, counted)."""
+    if spmd.is_dtensor(k):
+        from torch.distributed.tensor import Replicate
+        k = spmd.settle(k)
+        pl = tuple(Replicate() if p.is_shard(2) else p for p in k.placements)
+        if pl != tuple(k.placements):
+            k = k.redistribute(k.device_mesh, pl)
+        return spmd.local(lambda t: _ring_pad(t, W, dtype), pl, k)
     kr, have = _ring_layout(k, W)
     if have < W:
         kr = torch.nn.functional.pad(kr, (0, 0, 0, W - have))
@@ -605,35 +628,41 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
             cache_len: Optional[int] = None, prefix_embeds=None):
     """Run the prompts tokens (B, S), after ``prefix_embeds`` (B, P, d)
     when given; returns (last-token logits (B, Vp), the primed cache of
-    ``cache_len`` positions, default P + S)."""
+    ``cache_len`` positions, default P + S).  On DTensors the cache comes
+    back in the rules' cache layout (the reference's ``out_shardings``),
+    each layer's K/V written into the local shards."""
     x = _embed_tokens(params, cfg, tokens, prefix_embeds)
     B, S, _ = x.shape
     cache_len = cache_len or S
     cache = init_cache(cfg, B, cache_len, cfg.compute_dtype, prefill_len=S,
-                       device=x.device)
+                       device=x.device, mesh=x.device_mesh
+                       if spmd.is_dtensor(x) else None)
     W = cache_buffer_len(cfg, cache_len)
     if _recurrent(cfg):
-        # the prompt as ONE chunk of the serving recurrence from a zero
-        # carry: the carry it leaves is bit-identical to any other
-        # chunking of the same tokens (the paged engine's)
-        zero = SSM.init_paged_state(cfg, B, cfg.compute_dtype, x.device)
+        # the prompt as ONE chunk of the serving recurrence from the
+        # cache's zero carry: the carry it leaves is bit-identical to any
+        # other chunking of the same tokens (the paged engine's)
         for i, blk in enumerate(params.blocks):
             app = _shared_app(cfg, i)
             if app is not None:
                 x, _, (k, v) = _apply_attn_block(params.shared, x, be,
                                                  cfg, i)
-                cache.shared_k[app] = _ring_pad(k, W, cfg.compute_dtype)
-                cache.shared_v[app] = _ring_pad(v, W, cfg.compute_dtype)
+                spmd.write(cache.shared_k, (app,),
+                           _ring_pad(k, W, cfg.compute_dtype))
+                spmd.write(cache.shared_v, (app,),
+                           _ring_pad(v, W, cfg.compute_dtype))
             h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-            y, (cache.conv[i], cache.ssm[i]) = SSM.paged_step(
-                blk.mixer, h, be, cfg, zero)
+            y, (conv, ssm) = SSM.paged_step(blk.mixer, h, be, cfg,
+                                            (cache.conv[i], cache.ssm[i]))
+            spmd.write(cache.conv, (i,), conv)
+            spmd.write(cache.ssm, (i,), ssm)
             x = x + y
         x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
         return _unembed(params, cfg, x, be)[:, 0], cache
     for i, blk in enumerate(params.blocks):
         x, _, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
-        cache.attn_k[i] = _ring_pad(k, W, cfg.compute_dtype)
-        cache.attn_v[i] = _ring_pad(v, W, cfg.compute_dtype)
+        spmd.write(cache.attn_k, (i,), _ring_pad(k, W, cfg.compute_dtype))
+        spmd.write(cache.attn_v, (i,), _ring_pad(v, W, cfg.compute_dtype))
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)[:, 0], cache
 
@@ -641,7 +670,8 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
 def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
            cache: LMCache):
     """One-token step, tokens (B, 1): writes each layer's K/V (or carry)
-    into the cache in place; returns (logits (B, Vp), the cache at
+    into the cache in place (on DTensors into the local shards: a ring
+    slot on the rank that owns it); returns (logits (B, Vp), the cache at
     pos + 1)."""
     x = _embed_tokens(params, cfg, tokens)
     for i, blk in enumerate(params.blocks):
@@ -652,8 +682,10 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
                     params.shared, x, be, cfg, i,
                     kv=(cache.shared_k[app], cache.shared_v[app]),
                     pos=cache.pos)
-            x, (cache.conv[i], cache.ssm[i]) = _apply_mamba_block(
+            x, (conv, ssm) = _apply_mamba_block(
                 blk, x, be, cfg, state=(cache.conv[i], cache.ssm[i]))
+            spmd.write(cache.conv, (i,), conv)
+            spmd.write(cache.ssm, (i,), ssm)
             continue
         x, _, _ = _apply_attn_block(blk, x, be, cfg, i,
                                     kv=(cache.attn_k[i], cache.attn_v[i]),

@@ -30,9 +30,10 @@ class Model:
     decode: Callable
     # ^ (params, tokens, cache, be) -> (logits, cache)
     init_cache: Callable
-    # ^ (batch, seq_len, dtype, prefill_len, device) -> lm.LMCache;
-    #   enc-dec: (batch, seq_len, dtype, src_len, device), filled to
-    #   seq_len as the reference's
+    # ^ (batch, seq_len, dtype, prefill_len, device, mesh=None)
+    #   -> lm.LMCache (DTensors on a DeviceMesh); enc-dec: (batch,
+    #   seq_len, dtype, src_len, device, mesh=None), filled to seq_len as
+    #   the reference's
     paged_prefill: Optional[Callable] = None
     # ^ (params, tokens, ps, tables, pos0, slot, seg_len, n_prompt, be)
     #   -> logits
@@ -56,9 +57,11 @@ def _build_encdec(cfg: ModelConfig) -> Model:
     def dec(params, tokens, cache, be):
         return encdec.decode(params, cfg, be, tokens, cache)
 
-    def mk_cache(batch, seq_len, dtype, src_len=None, device="cuda"):
+    def mk_cache(batch, seq_len, dtype, src_len=None, device="cuda",
+                 mesh=None):
         return encdec.init_cache(cfg, batch, seq_len, src_len or seq_len,
-                                 dtype, prefill_len=seq_len, device=device)
+                                 dtype, prefill_len=seq_len, device=device,
+                                 mesh=mesh)
 
     return Model(cfg, init, lambda: encdec.encdec_specs(cfg), fwd, pf,
                  dec, mk_cache)
@@ -82,10 +85,11 @@ def build(cfg: ModelConfig) -> Model:
     def dec(params, tokens, cache, be):
         return lm.decode(params, cfg, be, tokens, cache)
 
-    def mk_cache(batch, seq_len, dtype, prefill_len=None, device="cuda"):
+    def mk_cache(batch, seq_len, dtype, prefill_len=None, device="cuda",
+                 mesh=None):
         return lm.init_cache(cfg, batch, seq_len, dtype,
                              seq_len if prefill_len is None else prefill_len,
-                             device)
+                             device, mesh)
 
     def ppf(params, tokens, ps, tables, pos0, slot, seg_len, n_prompt, be):
         return lm.paged_prefill(params, cfg, be, tokens, ps, tables, pos0,

@@ -118,14 +118,6 @@ def _conv_chunk(conv_state, x, w, b):
     return y.to(x.dtype)
 
 
-def _gate_out(p: Mamba, y, z, x, cfg: ModelConfig, be: Policy):
-    """y (B, S, di) f32 -> the block output: gate by silu(z), RMSNorm,
-    out_proj, as the reference writes it."""
-    y = y.to(x.dtype)
-    y = rmsnorm(y * _silu(z.float()).to(x.dtype), p.norm_w, cfg.norm_eps)
-    return mm(y, p.out_proj, be)
-
-
 def mamba(p: Mamba, x, be: Policy, cfg: ModelConfig,
           state: Optional[Tuple] = None):
     """Train/score path over whole sequences.  x: (B, S, d) -> y (B, S, d).
@@ -181,20 +173,17 @@ def _gated(p, z, xs, Bm, Cm, dt, x_dtype, be: Policy, cfg: ModelConfig):
     return y * _silu(z.float()).to(x_dtype)
 
 
-#: the mixer's weights that :func:`_gated` reads (all but the projections
-#: and the norm)
-_MIX = ("conv_w", "conv_b", "A_log", "D", "dt_bias")
-
-
-def _sharded_mamba(p: Mamba, x, be: Policy, cfg: ModelConfig):
-    """:func:`mamba` on DTensors.  in_proj is column-parallel, and its
+def _heads_layout(p: Mamba, x, be: Policy, cfg: ModelConfig):
+    """The sharded mixer's common start (:func:`_sharded_mamba`,
+    :func:`_sharded_paged_step`).  in_proj is column-parallel, and its
     output is made whole along the last dim (the split into z, x, B, C,
     dt crosses the shards).  Where ``inner`` is on a mesh dim that the
-    heads divide, each rank then takes its heads' share of z, x and dt
-    (a slice, no collective) and of the conv weights and per-head
-    vectors, with B and C whole, and runs the conv, the scan and the gate
-    on them; the norm spans the ranks' shares, and out_proj is
-    row-parallel.  Elsewhere the mixer runs whole on every rank."""
+    heads divide, each rank takes its heads' share (a slice, no
+    collective); elsewhere every head.  Returns (z, x, B, C, dt, z, x
+    and dt laid out as the share, B and C whole; the placements of the
+    share, of in_proj's output; the conv weights and per-head vectors
+    of the share: conv_w's x and B/C columns, conv_b's, A_log, D,
+    dt_bias, which :func:`_share` puts together)."""
     from torch.distributed.tensor import Replicate, Shard
     di, nh = cfg.d_inner, cfg.ssm_heads
     proj = spmd.settle(mm(x, p.in_proj, be))
@@ -205,12 +194,6 @@ def _sharded_mamba(p: Mamba, x, be: Policy, cfg: ModelConfig):
         proj = proj.redistribute(mesh, pl)
     tp = [q.is_shard(1) and nh % mesh.size(j) == 0
           for j, q in enumerate(p.in_proj.placements)]
-    if not any(tp):
-        ws = [spmd.whole(getattr(p, k)) for k in _MIX]
-        y = spmd.local(lambda pr, *w: _mix(
-            types.SimpleNamespace(**dict(zip(_MIX, w))), pr, x.dtype, be,
-            cfg), pl, proj, *ws)
-        return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
     heads = tuple(Shard(last) if t else q for t, q in zip(tp, pl))
     cols = tuple(Shard(1) if t else Replicate() for t in tp)
     vec = tuple(Shard(0) if t else Replicate() for t in tp)
@@ -221,13 +204,26 @@ def _sharded_mamba(p: Mamba, x, be: Policy, cfg: ModelConfig):
           cb[:di].redistribute(mesh, vec), cb[di:]] + [
         spmd.whole(getattr(p, k)).redistribute(mesh, vec)
         for k in ("A_log", "D", "dt_bias")]
+    return (z, xs, Bm, Cm, dt), (heads, pl), ws
 
-    def body(z, xs, Bm, Cm, dt, cw_x, cw_bc, cb_x, cb_bc, A_log, D, dt_bias):
-        w = types.SimpleNamespace(conv_w=torch.cat([cw_x, cw_bc], 1),
-                                  conv_b=torch.cat([cb_x, cb_bc]),
-                                  A_log=A_log, D=D, dt_bias=dt_bias)
-        return _gated(w, z, xs, Bm, Cm, dt, x.dtype, be, cfg)
-    y = spmd.local(body, heads, z, xs, Bm, Cm, dt, *ws)
+
+def _share(cw_x, cw_bc, cb_x, cb_bc, A_log, D, dt_bias):
+    """A rank's share of the mixer's weights (:func:`_heads_layout`'s) as
+    the ``p`` that :func:`_gated` and :func:`_recur` read."""
+    return types.SimpleNamespace(conv_w=torch.cat([cw_x, cw_bc], 1),
+                                 conv_b=torch.cat([cb_x, cb_bc]),
+                                 A_log=A_log, D=D, dt_bias=dt_bias)
+
+
+def _sharded_mamba(p: Mamba, x, be: Policy, cfg: ModelConfig):
+    """:func:`mamba` on DTensors: each rank runs the conv, the scan and
+    the gate on its heads' share (:func:`_heads_layout`); the norm spans
+    the ranks' shares, and out_proj is row-parallel."""
+    parts, (heads, _), ws = _heads_layout(p, x, be, cfg)
+
+    def body(z, xs, Bm, Cm, dt, *w):
+        return _gated(_share(*w), z, xs, Bm, Cm, dt, x.dtype, be, cfg)
+    y = spmd.local(body, heads, *parts, *ws)
     return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
 
 
@@ -267,17 +263,36 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
     one-token decode step, in a Python loop over the chunk, so chunking
     is invisible to the carry.  Returns (y (B, C, d), (conv', h')).
     On meta tensors under a counting ``step_analyzer.StepCounter`` (the
-    dry run) the loop's body runs once, counted C times."""
+    dry run) the loop's body runs twice, the second run counted C - 1
+    times.  On DTensors (the wave path on several ranks) see
+    :func:`_sharded_paged_step`."""
+    if spmd.is_dtensor(x):
+        if seg_len is not None or active is not None:
+            raise NotImplementedError("paged_step on DTensors: the wave "
+                                      "path only (no seg_len, no active)")
+        return _sharded_paged_step(p, x, be, cfg, state)
+    z, xs, Bm, Cm, dt = _split(mm(x, p.in_proj, be), cfg)
+    y, new = _recur(p, z, xs, Bm, Cm, dt, state, cfg, x.dtype, seg_len,
+                    active)
+    return mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be), new
+
+
+def _recur(p, z, xs, Bm, Cm, dt, state: Tuple, cfg: ModelConfig, x_dtype,
+           seg_len=None, active=None):
+    """:func:`paged_step` between in_proj and the norm, over the heads
+    ``xs`` and ``dt`` hold (all, or a rank's share: ``p`` then holds the
+    conv weights of [xs | B | C]'s channels and those heads' vectors, and
+    the carry those channels and heads).  Returns (the gated y (B, C,
+    di) in ``x_dtype``, (conv', h'))."""
     s = cfg.ssm
-    B, C, _ = x.shape
-    di, N, nh, P = cfg.d_inner, s.d_state, cfg.ssm_heads, s.head_dim
+    B, C, di = xs.shape
+    N, nh, P = Bm.shape[-1], dt.shape[-1], s.head_dim
     conv_state, h = state
-    dev = x.device
+    dev = xs.device
     if seg_len is None:
         seg_len = torch.full((B,), C, dtype=torch.long, device=dev)
     if active is None:
         active = torch.ones((B,), dtype=torch.bool, device=dev)
-    z, xs, Bm, Cm, dt = _split(mm(x, p.in_proj, be), cfg)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)                 # (B, C, ch)
     A = -torch.exp(p.A_log)
     conv_out = _silu(_conv_chunk(conv_state, conv_in, p.conv_w, p.conv_b))
@@ -290,21 +305,27 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
         & active[:, None]                                     # (B, C)
     dt_m = torch.where(valid[..., None], dt_c, torch.zeros((), device=dev))
     xf = xs_c.float()
-    hc, ys = h, []
-    if dev.type == "meta" and step_analyzer.trip_counting():
-        # the dry run: the C alike iterations counted as one body run C
-        # times (the reference's lax.scan trip count); nothing to compute
-        with step_analyzer.trip_count(C):
-            hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, 0], dt_m[:, 0], A,
-                                              B_c[:, 0], C_c[:, 0])
-        ys = [y_t] * C
-    for t in range(len(ys), C):
+    y = torch.empty((B, C, nh, P), dtype=torch.float32, device=dev)
+    hc, t0 = h, 0
+    if dev.type == "meta" and step_analyzer.trip_counting() and C > 2:
+        # the dry run: the C alike iterations counted as two body runs,
+        # the second C - 1 times (the reference's lax.scan trip count);
+        # the second holds the previous carry live as every later
+        # iteration does, so the peak of live bytes is the loop's too
+        hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, 0], dt_m[:, 0], A,
+                                          B_c[:, 0], C_c[:, 0])
+        y[:, 0] = y_t
+        with step_analyzer.trip_count(C - 1):
+            hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, 1], dt_m[:, 1], A,
+                                              B_c[:, 1], C_c[:, 1])
+            y[:, 1] = y_t
+        t0 = C
+    for t in range(t0, C):
         hc, y_t = ref.ref_ssd_decode_step(hc, xf[:, t], dt_m[:, t], A,
                                           B_c[:, t], C_c[:, t])
-        ys.append(y_t)
-    y = torch.stack(ys, 1)                                    # (B,C,nh,P)
+        y[:, t] = y_t
     y = y + p.D[None, None, :, None] * xf
-    out = _gate_out(p, y.reshape(B, C, di), z, x, cfg, be)
+    y = y.reshape(B, C, di).to(x_dtype) * _silu(z.float()).to(x_dtype)
     # conv carry: rows [seg_len, seg_len + K-1) of [carry ; chunk] are the
     # last K-1 inputs at or before the segment end
     Kc = s.d_conv - 1
@@ -315,4 +336,40 @@ def paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig, state: Tuple, *,
     conv_new = torch.where(active[:, None, None],
                            conv_new.to(conv_state.dtype), conv_state)
     h_new = torch.where(active[:, None, None, None], hc, h)
-    return out, (conv_new, h_new)
+    return y, (conv_new, h_new)
+
+
+def _sharded_paged_step(p: Mamba, x, be: Policy, cfg: ModelConfig,
+                        state: Tuple):
+    """:func:`paged_step` on DTensors, split as the training mixer
+    (:func:`_heads_layout`): each rank runs the conv and the recurrence
+    on its heads' share, with the conv carry's x channels and the SSM
+    state's heads of that share.  The conv carry is gathered whole first
+    (the cache splits its channels evenly, which does not follow the
+    heads), and both new carries go back in the carry's layout.  The
+    norm spans the ranks' shares; out_proj is row-parallel."""
+    from torch.distributed.tensor import Shard
+    di = cfg.d_inner
+    conv, h = state
+    parts, (heads, pl), ws = _heads_layout(p, x, be, cfg)
+    mesh = parts[0].device_mesh
+    # the SSM state's heads split where the share's are
+    rows = tuple(Shard(1) if q.is_shard(2) else q for q in heads)
+    conv_pl, h_pl = tuple(conv.placements), tuple(h.placements)
+    conv = conv.redistribute(mesh, pl)
+    h = h.redistribute(mesh, rows) if h_pl != rows else h
+    cx = conv[..., :di].redistribute(mesh, heads)
+
+    def body(z, xs, Bm, Cm, dt, cx, cbc, h, *w):
+        y, (c, hn) = _recur(_share(*w), z, xs, Bm, Cm, dt,
+                            (torch.cat([cx, cbc], -1), h), cfg, x.dtype)
+        return y, c[..., :cx.shape[-1]], c[..., cx.shape[-1]:], hn
+    y, cx, cbc, h = spmd.local(body, (heads, heads, pl, rows), *parts, cx,
+                               conv[..., di:], h, *ws)
+    conv = torch.cat([cx.redistribute(mesh, pl), cbc], -1)
+    if tuple(conv.placements) != conv_pl:
+        conv = conv.redistribute(mesh, conv_pl)
+    if tuple(h.placements) != h_pl:
+        h = h.redistribute(mesh, h_pl)
+    out = mm(rmsnorm(y, p.norm_w, cfg.norm_eps), p.out_proj, be)
+    return out, (conv, h)

@@ -306,3 +306,12 @@ def cache_shardings(cfg: ModelConfig, shape: ShapeConfig, mesh,
         "cross_k": attn, "cross_v": attn,
         "pos": (),
     }
+
+
+def cache_placements(cfg: ModelConfig, mesh, batch: int) -> Dict[str, Tuple]:
+    """DTensor placements of the cache tensors of ``batch`` sequences on
+    ``mesh`` (a ``DeviceMesh``): :func:`cache_shardings`'s specs, which
+    read only the batch of the shape and the rules' table."""
+    shape = ShapeConfig("cache", 0, batch, "decode")
+    return {k: spec_placements(mesh, s) for k, s in cache_shardings(
+        cfg, shape, mesh, make_rules(cfg, mesh)).items()}

@@ -212,6 +212,69 @@ def sharded_matmul(x, w, local_fn: Callable):
     return local(local_fn, tuple(out), x, w, mesh=mesh)
 
 
+def zeros(shape: Sequence[int], dtype, device, mesh, placements):
+    """A zero DTensor of ``shape`` laid out by ``placements``: each rank
+    allocates its own shard only (no collective)."""
+    loc = torch.zeros(local_shape(shape, mesh, placements), dtype=dtype,
+                      device=device)
+    return from_local(loc, mesh, placements, shape)
+
+
+def write(dst, index: Tuple, src) -> None:
+    """``dst[index] = src`` in place, ``index`` a tuple of ints and unit-step
+    slices over ``dst``'s leading dims.  On a DTensor ``dst`` each rank
+    writes its own shard only: ``src`` (a DTensor, or a plain tensor the
+    same on every rank) is laid out as ``dst`` on the dims written whole,
+    replicated on a sliced dim that ``dst`` shards, where each rank keeps
+    the part of the slice it holds (a ring slot on the rank that owns it,
+    nothing on the others).  An int indexes a dim that is whole on every
+    rank.  The redistribution of ``src`` is the only collective."""
+    if not is_dtensor(dst):
+        dst[index] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = dst.device_mesh
+    shape = tuple(dst.shape)
+    lo = local_offset(shape, mesh, dst.placements)
+    ln = local_shape(shape, mesh, dst.placements)
+    ints = [d for d, i in enumerate(index) if isinstance(i, int)]
+    spans = {d: i.indices(shape[d]) for d, i in enumerate(index)
+             if isinstance(i, slice)}
+    if any(s[2] != 1 for s in spans.values()):
+        raise ValueError(f"write: slices of step 1 only, got {index}")
+    sliced = {d for d, (a, b, _) in spans.items()
+              if (a, b) != (0, shape[d])}
+    pl = []
+    for p in dst.placements:
+        if p.is_shard() and p.dim in ints:
+            raise ValueError(f"write: dim {p.dim} is sharded and indexed by "
+                             "an int")
+        if p.is_shard() and p.dim not in sliced:
+            pl.append(Shard(p.dim - sum(1 for d in ints if d < p.dim)))
+        else:
+            pl.append(Replicate())
+    src = settle(as_dtensor(src, mesh))
+    if tuple(src.placements) != tuple(pl):
+        src = src.redistribute(mesh, tuple(pl))
+    didx, sidx = [], []
+    for d in range(len(shape)):
+        i = index[d] if d < len(index) else slice(None)
+        if isinstance(i, int):
+            didx.append(i)
+            continue
+        a, b, _ = spans.get(d, (0, shape[d], 1))
+        if d in sliced and ln[d] != shape[d]:
+            s, e = max(a, lo[d]), min(b, lo[d] + ln[d])
+            if s >= e:
+                return                   # no slot of the slice lives here
+            didx.append(slice(s - lo[d], e - lo[d]))
+            sidx.append(slice(s - a, e - a))
+        else:
+            didx.append(slice(a, b) if d in sliced else slice(None))
+            sidx.append(slice(None))
+    dst.to_local()[tuple(didx)].copy_(src.to_local()[tuple(sidx)])
+
+
 def owned_sum(tensors) -> torch.Tensor:
     """sum of ``t.float() ** 2`` over DTensors ``tensors``, each element
     counted once across the world: each rank adds its local squares only

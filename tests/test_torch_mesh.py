@@ -105,9 +105,13 @@ def _one_rank(arch, accum, dtype, hosts, groups):
         for s in range(STEPS):
             rows = [data.batch(s, host=h, num_hosts=hosts)
                     for h in range(hosts)]
+            # where accum does not divide a shard's rows the sharded step
+            # gathers the batch and cuts it whole (``_split_micro``)
             gb = D.to_device({k: np.concatenate(
                 [rows[h][k][i * per:(i + 1) * per] for i in range(accum)
-                 for h in range(hosts)]) for k in rows[0]}, "cpu")
+                 for h in range(hosts)] if per else
+                [rows[h][k] for h in range(hosts)]) for k in rows[0]},
+                "cpu")
             if s == 0:
                 grads = _grads(model, tc, st, TL._split_micro(gb, accum)[0])
             st, m = step(st, gb)
@@ -354,10 +358,16 @@ def test_checkpoint_2x4_restores_on_4x2(world_a):
 
 C_CASES = [(a, s) for a in ("olmo-1b", "mamba2-780m")
            for s in ((1, 2), (2, 1))] + [("zamba2-7b", (1, 2))]
+#: moonshot on 2 x 1 with 4 microbatches: a shard's 2 rows do not split
+#: 4 ways, so each microbatch is one row cut from the gathered batch, and
+#: its 2 dispatch groups split that row's sequence
+C_GATHERED = ("moonshot-v1-16b-a3b", (2, 1), 4)
 
 
 def _world_c(rank, world):
-    return {(a, s): _sharded_run(a, s, 1, "float32") for a, s in C_CASES}
+    out = {(a, s): _sharded_run(a, s, 1, "float32") for a, s in C_CASES}
+    out[C_GATHERED] = _sharded_run(*C_GATHERED, "float32")
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -369,6 +379,17 @@ def world_c():
 def test_smoke_on_two_ranks_matches_one_rank(world_c, arch, shape):
     got = world_c[0][(arch, shape)]
     want = _one_rank(arch, 1, "float32", got[2], _groups(arch, got[2]))
+    _assert_equal_steps(got, want, "float32")
+
+
+def test_moe_groups_within_a_sequence_match_one_rank(world_c):
+    """The MoE output of dispatch groups that split a sequence (a one-row
+    microbatch in 2 groups) is gathered back to the whole rows before it
+    is reshaped to the batch; the step equals one rank's in the same
+    groups."""
+    arch, _, accum = C_GATHERED
+    got = world_c[0][C_GATHERED]
+    want = _one_rank(arch, accum, "float32", got[2], got[2])
     _assert_equal_steps(got, want, "float32")
 
 
