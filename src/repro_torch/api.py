@@ -33,6 +33,7 @@ import contextlib
 import contextvars
 import dataclasses
 import functools
+import time
 from typing import Optional, Tuple
 
 import torch
@@ -391,9 +392,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
          alpha=1.0, beta=0.0, trans_a: bool = False, trans_b: bool = False,
          *, policy: Optional[Policy] = None) -> torch.Tensor:
     """C = alpha * op(A) @ op(B) + beta * C with input-aware routing
-    (the 2-D BLAS entry — the paper's ``iaat_gemm``)."""
+    (the 2-D BLAS entry — the paper's ``iaat_gemm``).  Inside an
+    ``obs.capture`` the call, from its route to its last launch, is one
+    cheap ``gemm.dispatch`` record."""
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError("gemm is the 2-D BLAS entry; use matmul()")
+    if obs.capturing():
+        t0 = time.perf_counter_ns()
+        out = _gemm(a, b, c, alpha, beta, trans_a, trans_b, policy)
+        obs.mark("gemm.dispatch", t0)
+        return out
+    return _gemm(a, b, c, alpha, beta, trans_a, trans_b, policy)
+
+
+def _gemm(a, b, c, alpha, beta, trans_a: bool, trans_b: bool,
+          policy: Optional[Policy]) -> torch.Tensor:
     pol = _resolve(policy)
     trans = _trans_str(trans_a, trans_b)
     M, N, K = _problem_dims(a.shape, b.shape, trans)
@@ -416,10 +429,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     On DTensors (a train step on several ranks) the weight is gathered
     over the batch axes (FSDP) and this same routed GEMM runs on each
     rank's local shards (``parallel/spmd.sharded_matmul``), so the route
-    and the kernel see the local (M, N, K)."""
+    and the kernel see the local (M, N, K).  Inside an ``obs.capture`` each
+    local call is one cheap ``gemm.dispatch`` record."""
     if spmd.any_dtensor(x, w):
         return spmd.sharded_matmul(x, w, functools.partial(
             matmul, policy=policy))
+    if obs.capturing():
+        t0 = time.perf_counter_ns()
+        out = _matmul(x, w, policy)
+        obs.mark("gemm.dispatch", t0)
+        return out
+    return _matmul(x, w, policy)
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor,
+            policy: Optional[Policy]) -> torch.Tensor:
     pol = _resolve(policy)
     if not pol.iaat:
         return torch.matmul(x, w)

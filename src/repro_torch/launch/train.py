@@ -48,7 +48,7 @@ import time
 
 import torch
 
-from repro_torch import api, configs, obs
+from repro_torch import api, configs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.registry import build as build_model
@@ -185,9 +185,8 @@ def _run(args, cfg, device, mesh) -> dict:
                 raise fault.SimulatedFault(f"injected at step {step}")
             monitor.start()
             t0 = time.perf_counter()
-            with obs.span("train.step"):
-                state, m = step_fn(state, batch_at(step))
-                m = {k: float(v) for k, v in m.items()}   # waits for it
+            state, m = step_fn(state, batch_at(step))
+            m = {k: float(v) for k, v in m.items()}   # waits for it
             dt = time.perf_counter() - t0
             monitor.stop(step)
             train_loop.record_step(step, m, dt)

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, ref
@@ -225,7 +225,8 @@ def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
     ok = key_pos[None, None, :] <= q_pos[:, :, None]            # (B, C, S)
     if window is not None:
         ok &= key_pos[None, None, :] > q_pos[:, :, None] - window
-    neg = torch.tensor(float("-inf"), device=q.device)
+    with obs.span("serve.sync", ranged=False):  # a blocking copy
+        neg = torch.tensor(float("-inf"), device=q.device)
     if C == 1:
         qf = q.reshape(B, Hkv, rep, hd)
         logits = _f32_einsum("bkrd,bksd->bkrs", qf, kg) * scale

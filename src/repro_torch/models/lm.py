@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -433,10 +434,13 @@ def _sharded_embed(embed, tokens):
 
 
 def _unembed(params: DenseLM, cfg: ModelConfig, x, be: Policy):
-    # the tied embed.T is a strided view (strides (1, d)): it reaches the
-    # GEMM kernel uncopied, which reads it along its unit-stride K dim
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
-    return mm(x, w, be)
+    """The final norm and the vocabulary head (span ``model.head``)."""
+    with obs.span("model.head"):
+        x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+        # the tied embed.T is a strided view (strides (1, d)): the GEMM
+        # kernel reads it uncopied, along its unit-stride K dim
+        w = params.embed.T if cfg.tie_embeddings else params.unembed
+        return mm(x, w, be)
 
 
 def _window_for_layer(cfg: ModelConfig, i: int) -> Optional[int]:
@@ -459,19 +463,22 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
     scalar, a Python 0.0 for an MLP block; a training term, which the
     serving paths drop as the reference's do), the prompt's (k, v) in
     prefill mode, else None)."""
-    h = rmsnorm(x, blk.ln1, cfg.norm_eps)
-    out = L.attention(blk.attn, h, be, cfg, window=_window_for_layer(cfg, i),
-                      kv_cache=kv, pos=pos, paged_kv=paged_kv)
-    prefill = kv is None and paged_kv is None
-    attn_out, kv_out = out if prefill else (out, None)
-    x = x + attn_out
-    h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
-    aux = 0.0
-    if blk.moe is not None:
-        y, aux = L.moe(blk.moe, h2, be, cfg)
-    else:
-        y = L.mlp(blk.mlp, h2, be)
-    return x + y, aux, kv_out
+    with obs.span("model.attention", ranged=False, layer=i):
+        h = rmsnorm(x, blk.ln1, cfg.norm_eps)
+        out = L.attention(blk.attn, h, be, cfg,
+                          window=_window_for_layer(cfg, i), kv_cache=kv,
+                          pos=pos, paged_kv=paged_kv)
+        prefill = kv is None and paged_kv is None
+        attn_out, kv_out = out if prefill else (out, None)
+        x = x + attn_out
+    with obs.span("model.mlp", ranged=False, layer=i):
+        h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
+        aux = 0.0
+        if blk.moe is not None:
+            y, aux = L.moe(blk.moe, h2, be, cfg)
+        else:
+            y = L.mlp(blk.mlp, h2, be)
+        return x + y, aux, kv_out
 
 
 def _apply_mamba_block(blk: MambaBlock, x, be: Policy, cfg: ModelConfig, *,
@@ -519,7 +526,6 @@ def forward_train(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
             x, a = remat(cfg, body, x, blk, i)
             aux = aux + a
         aux = aux / cfg.n_layers
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be), aux
 
 
@@ -657,14 +663,12 @@ def prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
             spmd.write(cache.conv, (i,), conv)
             spmd.write(cache.ssm, (i,), ssm)
             x = x + y
-        x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
-        return _unembed(params, cfg, x, be)[:, 0], cache
+        return _unembed(params, cfg, x[:, -1:], be)[:, 0], cache
     for i, blk in enumerate(params.blocks):
         x, _, (k, v) = _apply_attn_block(blk, x, be, cfg, i)
         spmd.write(cache.attn_k, (i,), _ring_pad(k, W, cfg.compute_dtype))
         spmd.write(cache.attn_v, (i,), _ring_pad(v, W, cfg.compute_dtype))
-    x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
-    return _unembed(params, cfg, x, be)[:, 0], cache
+    return _unembed(params, cfg, x[:, -1:], be)[:, 0], cache
 
 
 def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
@@ -690,7 +694,6 @@ def decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
         x, _, _ = _apply_attn_block(blk, x, be, cfg, i,
                                     kv=(cache.attn_k[i], cache.attn_v[i]),
                                     pos=cache.pos)
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)[:, 0], dataclasses.replace(
         cache, pos=cache.pos + 1)
 
@@ -762,12 +765,10 @@ def _paged_core(params: DenseLM, cfg: ModelConfig, be: Policy, x,
                 blk.mixer, h, be, cfg, (ps.conv[i, rows], ps.ssm[i, rows]),
                 seg_len=seg_len, active=active)
             x = x + y
-        x = rmsnorm(x, params.final_norm, cfg.norm_eps)
         return _unembed(params, cfg, x, be)
     for i, blk in enumerate(params.blocks):
         x, _, _ = _apply_attn_block(blk, x, be, cfg, i, paged_kv=(
             ps.attn_k[i], ps.attn_v[i], block_tables, qpos, decode_from))
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return _unembed(params, cfg, x, be)
 
 
@@ -782,23 +783,26 @@ def paged_prefill(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     0 (fresh admission or recompute-resume) the slot's carry rows are
     zeroed first, on the device, in lockstep with the scheduler rewinding
     the position.  Returns logits (1, C, Vp); ``ps`` is updated in
-    place."""
-    x = _embed_tokens(params, cfg, tokens)
-    B, C, _ = x.shape
-    qpos = pos_start[:, None] + torch.arange(C, device=x.device)[None, :]
-    dfrom = torch.full((B,), int(n_prompt), dtype=qpos.dtype,
-                       device=x.device)
-    if not _recurrent(cfg):
-        return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom)
-    rows = slice(slot, slot + 1)
-    fresh = pos_start[0] == 0
-    zero = torch.zeros((), device=x.device)
-    for pool in (ps.conv, ps.ssm):
-        pool[:, rows] = torch.where(fresh, zero.to(pool.dtype),
-                                    pool[:, rows])
-    seg = torch.full((B,), int(seg_len), dtype=torch.long, device=x.device)
-    return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom,
-                       rows=rows, seg_len=seg)
+    place.  The call is the span ``model.call`` (``which="prefill"``)."""
+    with obs.span("model.call", which="prefill"):
+        x = _embed_tokens(params, cfg, tokens)
+        B, C, _ = x.shape
+        qpos = pos_start[:, None] + torch.arange(C, device=x.device)[None, :]
+        dfrom = torch.full((B,), int(n_prompt), dtype=qpos.dtype,
+                           device=x.device)
+        if not _recurrent(cfg):
+            return _paged_core(params, cfg, be, x, ps, block_tables, qpos,
+                               dfrom)
+        rows = slice(slot, slot + 1)
+        fresh = pos_start[0] == 0
+        zero = torch.zeros((), device=x.device)
+        for pool in (ps.conv, ps.ssm):
+            pool[:, rows] = torch.where(fresh, zero.to(pool.dtype),
+                                        pool[:, rows])
+        seg = torch.full((B,), int(seg_len), dtype=torch.long,
+                         device=x.device)
+        return _paged_core(params, cfg, be, x, ps, block_tables, qpos, dfrom,
+                           rows=rows, seg_len=seg)
 
 
 def paged_decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
@@ -807,8 +811,11 @@ def paged_decode(params: DenseLM, cfg: ModelConfig, be: Policy, tokens,
     (slots,), active (slots,) bool (None: every slot).  Inactive rows
     read/write the null block through their all-zero table row and keep
     their recurrent carries bitwise unchanged.  Returns logits
-    (slots, 1, Vp)."""
-    x = _embed_tokens(params, cfg, tokens)
-    qpos = pos[:, None] + torch.arange(x.shape[1], device=x.device)[None, :]
-    return _paged_core(params, cfg, be, x, ps, block_tables, qpos,
-                       active=active)
+    (slots, 1, Vp).  The call is the span ``model.call``
+    (``which="decode"``)."""
+    with obs.span("model.call", which="decode"):
+        x = _embed_tokens(params, cfg, tokens)
+        qpos = pos[:, None] + torch.arange(x.shape[1],
+                                           device=x.device)[None, :]
+        return _paged_core(params, cfg, be, x, ps, block_tables, qpos,
+                           active=active)

@@ -1,43 +1,43 @@
 """repro_torch.obs — process-local observability (counterpart of repro.obs).
 
 A metric registry (:class:`Counter`, :class:`Gauge`, log-bucket
-:class:`Histogram` with p50/p95/p99), :func:`span` wall-clock sections
-(each also opens a ``torch.profiler.record_function`` so host sections
-line up with device kernels in a profiler trace), the Router's shape log
-and decision memo :data:`ROUTES` (with :meth:`RouteLog.windowed`, the
-online tuner's feed), the flight recorder :data:`TRACE` (its reducer and
-Perfetto export in :mod:`.trace`), and :func:`export_bench`, which writes
-a schema'd ``BENCH_<name>.json`` under :func:`bench_root` —
-``build/repro_torch/bench/`` in the checkout, never the repository root.
-``python -m repro_torch.obs`` lists, shows and diffs those files and
-re-exports a trace.
+:class:`Histogram` with p50/p95/p99), the span recorder (:func:`span`,
+:func:`capture`, :func:`spans`), the Router's shape log and decision memo
+:data:`ROUTES` (with :meth:`RouteLog.windowed`, the online tuner's feed),
+and the flight recorder :data:`TRACE` (its reducer and Perfetto export in
+:mod:`.trace`).  ``python -m repro_torch.obs`` prints the live registry
+and re-exports a trace.
+
+Spans record only inside a *capture*: while ``torch.profiler`` runs, or
+inside ``with obs.capture():``.  Outside one a span costs one flag check.
+Inside one each span appends a record (name, start and end on
+``time.perf_counter_ns``, its parent's index, an optional request id and
+attributes, optionally its device time) to a bounded buffer, and, while
+the profiler runs, opens a ``record_function`` of its name, so that it
+shows beside the kernels it launched in the profiler's trace.
 
 ``REPRO_OBS=0`` disables everything: metric helpers hand out a shared
-null object, :func:`span` skips the clock, and the route log is bypassed
-with one attribute check.
+null object, spans never record, and the route log is bypassed with one
+attribute check.
 """
 from __future__ import annotations
 
 import collections as _collections
-import json
 import math
 import os
-import pathlib
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+from torch.autograd import profiler as _profiler
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "REGISTRY", "ROUTES",
-    "TRACE", "counter", "gauge", "histogram", "span", "enabled",
-    "set_enabled", "export_bench", "load_bench", "diff_bench",
-    "report_str", "reset", "bench_root", "record_trajectory",
-    "BENCH_SCHEMA_VERSION",
+    "TRACE", "counter", "gauge", "histogram", "span", "capture",
+    "capturing", "mark", "spans", "span_drops", "SpanRecord", "enabled",
+    "set_enabled", "report_str", "reset",
 ]
-
-BENCH_SCHEMA_VERSION = 1
-#: where BENCH files land when set (``bench_root``)
-BENCH_DIR_ENV = "REPRO_TORCH_BENCH_DIR"
 
 # bucket i covers [BASE**i, BASE**(i+1)); worst-case percentile error
 # sqrt(BASE) - 1 ~ 4.4%
@@ -281,9 +281,11 @@ def histogram(name: str, **labels) -> Histogram:
 
 
 def reset() -> None:
-    """Clear every metric, the route log AND the flight recorder."""
+    """Clear every metric, the route log, the span buffer AND the flight
+    recorder."""
     REGISTRY.reset()
     ROUTES.reset()
+    _REC.reset()
     TRACE.reset()
 
 
@@ -291,50 +293,201 @@ def reset() -> None:
 # Spans.
 # --------------------------------------------------------------------------
 
-_span_stack = threading.local()
+#: open ``capture()`` blocks
+_CAPTURES = 0
 
 
-class span:
-    """Wall-clock section: ``with span("serve.prefill"): ...``
+class SpanRecord(NamedTuple):
+    """One recorded span.  ``parent`` is the index in :func:`spans` of the
+    span open around it on its thread (-1: none, or dropped); ``t1_ns`` is
+    None while it is open; ``device_ms`` is the time the current CUDA
+    stream took between its edges (``span(..., device=True)`` on a CUDA
+    device), else None."""
+    name: str
+    t0_ns: int
+    t1_ns: Optional[int]
+    parent: int
+    rid: Optional[int]
+    attrs: Optional[Dict[str, Any]]
+    device_ms: Optional[float]
 
-    Nested spans record under their dotted path (``span.b.a_us``).  Each
-    span also opens ``torch.profiler.record_function`` (the counterpart of
-    ``jax.profiler.TraceAnnotation``): nearly free when no profiler runs,
-    and the host section shows beside the device kernels when one does.
-    """
-    __slots__ = ("name", "_t0", "_path", "_rf")
 
-    def __init__(self, name: str) -> None:
-        self.name = name
-        self._t0 = 0.0
-        self._path = ""
-        self._rf = None
+class _Recorder:
+    """The bounded span buffer: past ``CAP`` records it counts drops and
+    overwrites nothing."""
+    CAP = 1 << 17
 
-    def __enter__(self) -> "span":
-        if not _ENABLED:
-            return self
-        import torch
-        stack = getattr(_span_stack, "names", None)
-        if stack is None:
-            stack = _span_stack.names = []
-        stack.append(self.name)
-        self._path = ".".join(stack)
-        self._rf = torch.profiler.record_function(self._path)
-        self._rf.__enter__()
-        self._t0 = time.perf_counter()
+    def __init__(self) -> None:
+        self.buf: List[list] = []
+        self.drops = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def stack(self) -> List[int]:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+    def add(self, rec: list) -> int:
+        with self.lock:
+            if len(self.buf) >= self.CAP:
+                self.drops += 1
+                return -1
+            self.buf.append(rec)
+            return len(self.buf) - 1
+
+    def reset(self) -> None:
+        with self.lock:
+            self.buf = []
+            self.drops = 0
+
+
+_REC = _Recorder()
+
+
+def capturing() -> bool:
+    """Whether spans record now: inside :func:`capture` or while
+    ``torch.profiler`` runs, with observability on."""
+    return bool((_CAPTURES or _profiler._is_profiler_enabled) and _ENABLED)
+
+
+class capture:
+    """``with obs.capture(): ...`` records spans with no profiler running
+    (the records stay in the buffer until :func:`reset`)."""
+
+    def __enter__(self) -> "capture":
+        global _CAPTURES
+        _CAPTURES += 1
         return self
 
     def __exit__(self, *exc) -> None:
-        if not self._path:
-            return
-        dt_us = (time.perf_counter() - self._t0) * 1e6
-        self._rf.__exit__(*exc)
+        global _CAPTURES
+        _CAPTURES -= 1
+
+
+class _NullSpan:
+    """What :func:`span` hands out outside a capture: records nothing."""
+    __slots__ = ()
+
+    def __bool__(self) -> bool:
+        return False
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    """A span inside a capture (see :func:`span`)."""
+    __slots__ = ("rec", "_device", "_ranged", "_rf", "_events")
+
+    def __init__(self, name: str, rid, device: bool, ranged: bool,
+                 attrs) -> None:
+        self.rec = [name, 0, None, -1, rid, attrs or None, None]
+        self._device, self._ranged = device, ranged
         self._rf = None
-        stack = _span_stack.names
-        if stack and stack[-1] == self.name:
-            stack.pop()
-        REGISTRY.histogram(f"span.{self._path}_us").record(dt_us)
-        self._path = ""
+        self._events = None
+
+    @property
+    def t0_ns(self) -> int:
+        return self.rec[1]
+
+    def set(self, **attrs) -> None:
+        """Add attributes to the record (one known only once it opened)."""
+        if self.rec[5] is None:
+            self.rec[5] = {}
+        self.rec[5].update(attrs)
+
+    def __enter__(self) -> "_Span":
+        st = _REC.stack()
+        self.rec[3] = st[-1] if st else -1
+        st.append(_REC.add(self.rec))
+        if self._ranged and _profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.rec[0])
+            self._rf.__enter__()
+        if self._device and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self._events = self.rec[6] = [start, None]
+        self.rec[1] = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.rec[2] = time.perf_counter_ns()
+        if self._events is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._events[1] = end
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        _REC.stack().pop()
+
+
+def span(name: str, rid: Optional[int] = None, device: bool = False,
+         ranged: bool = True, **attrs):
+    """A host section: ``with obs.span("serve.prefill", rid=7): ...``.
+
+    Outside a capture it is a shared no-op (one flag check: no clock, no
+    ``record_function``, no record).  Inside one it records its name, its
+    start and end, its parent span, ``rid`` and ``attrs`` (more can be
+    added once it is open: ``with obs.span(...) as sp: if sp:
+    sp.set(k=v)``); ``device=True`` also records a CUDA event pair on the
+    current stream at its edges, read back by :func:`spans`.  While the
+    profiler runs it opens a ``record_function`` of its name, unless
+    ``ranged=False``: for sections tens of times a model call (a layer's
+    halves, its syncs), where the profiler's ranges would cost the step
+    several percent.
+    """
+    if not ((_CAPTURES or _profiler._is_profiler_enabled) and _ENABLED):
+        return _NULL_SPAN
+    return _Span(name, rid, device, ranged, attrs)
+
+
+def mark(name: str, t0_ns: int) -> None:
+    """A cheap record from ``t0_ns`` to now under the innermost open span,
+    with no profiler range: for sections too frequent for a
+    ``record_function`` each.  Call it only where :func:`capturing` held
+    when ``t0_ns`` was read."""
+    t1 = time.perf_counter_ns()
+    st = _REC.stack()
+    _REC.add([name, t0_ns, t1, st[-1] if st else -1, None, None, None])
+
+
+def _resolve(rec: list) -> Optional[float]:
+    ev = rec[6]
+    if ev is None or isinstance(ev, float):
+        return ev
+    if ev[1] is None:
+        return None                      # still open
+    ev[1].synchronize()
+    rec[6] = float(ev[0].elapsed_time(ev[1]))
+    return rec[6]
+
+
+def spans() -> List[SpanRecord]:
+    """Every record in the buffer, in the order the spans opened (cheap
+    records where they closed); device times are read back here, which
+    may wait for the device."""
+    with _REC.lock:
+        buf = list(_REC.buf)
+    out = []
+    for rec in buf:
+        dev = _resolve(rec)
+        out.append(SpanRecord(rec[0], rec[1], rec[2], rec[3], rec[4],
+                              dict(rec[5]) if rec[5] else None, dev))
+    return out
+
+
+def span_drops() -> int:
+    """Records the full buffer refused since the last :func:`reset`."""
+    return _REC.drops
 
 
 # --------------------------------------------------------------------------
@@ -517,137 +670,6 @@ from repro_torch.obs import trace  # noqa: E402
 #: The process-global per-request event ring (see :mod:`.trace`).
 TRACE = trace.TRACE
 TRACE.on = TRACE.on and _ENABLED
-
-
-# --------------------------------------------------------------------------
-# BENCH_<name>.json export.
-# --------------------------------------------------------------------------
-
-def bench_root() -> pathlib.Path:
-    """Where BENCH files land: ``$REPRO_TORCH_BENCH_DIR``, else
-    ``build/repro_torch/bench/`` in the checkout (the repository root
-    holds the reference's own BENCH files)."""
-    env = os.environ.get(BENCH_DIR_ENV)
-    if env:
-        return pathlib.Path(env).expanduser()
-    return pathlib.Path(__file__).resolve().parents[3] / "build" / \
-        "repro_torch" / "bench"
-
-
-def _write_json(out: pathlib.Path, doc: dict) -> None:
-    tmp = out.with_suffix(".json.tmp")
-    tmp.write_text(json.dumps(doc, indent=1, sort_keys=True) + "\n")
-    tmp.replace(out)        # atomic: a reader never sees a torn file
-
-
-def export_bench(name: str, meta: Optional[dict] = None, *,
-                 root: Optional[os.PathLike] = None) -> pathlib.Path:
-    """Write the live registry and route log as ``BENCH_<name>.json``
-    (schema-versioned, sorted keys; ``python -m repro_torch.obs diff``
-    compares two).  An existing file's ``trajectory`` list is kept."""
-    doc = {
-        "bench": name,
-        "schema": BENCH_SCHEMA_VERSION,
-        "created_unix": time.time(),
-        "meta": dict(meta or {}),
-        "metrics": REGISTRY.snapshot(),
-        "router": ROUTES.snapshot(),
-    }
-    path = pathlib.Path(root) if root else bench_root()
-    path.mkdir(parents=True, exist_ok=True)
-    out = path / f"BENCH_{name}.json"
-    if out.exists():
-        try:
-            prev = json.loads(out.read_text()).get("trajectory")
-            if prev:
-                doc["trajectory"] = prev
-        except (OSError, ValueError):
-            pass        # a corrupt old file is overwritten
-    _write_json(out, doc)
-    return out
-
-
-def record_trajectory(name: str, entry: dict, *,
-                      root: Optional[os.PathLike] = None) -> pathlib.Path:
-    """Append one row (stamped with the time and, where git answers, the
-    commit) to ``BENCH_<name>.json``'s ``trajectory``, creating a
-    skeleton document if there is none."""
-    path = pathlib.Path(root) if root else bench_root()
-    path.mkdir(parents=True, exist_ok=True)
-    out = path / f"BENCH_{name}.json"
-    try:
-        doc = json.loads(out.read_text())
-    except (OSError, ValueError):
-        doc = {"bench": name, "schema": BENCH_SCHEMA_VERSION,
-               "created_unix": time.time(), "meta": {}, "metrics": {},
-               "router": []}
-    row = {"recorded_unix": time.time()}
-    commit = _git_head()
-    if commit:
-        row["commit"] = commit
-    row.update(entry)
-    doc.setdefault("trajectory", []).append(row)
-    _write_json(out, doc)
-    return out
-
-
-_GIT_HEAD_CACHE: Optional[Tuple[Optional[str]]] = None
-
-
-def _git_head() -> Optional[str]:
-    """Short commit hash of the checkout holding this file, or None
-    (memoized per process)."""
-    global _GIT_HEAD_CACHE
-    if _GIT_HEAD_CACHE is None:
-        import subprocess
-        try:
-            head = subprocess.run(
-                ["git", "rev-parse", "--short", "HEAD"],
-                cwd=pathlib.Path(__file__).resolve().parent, timeout=5,
-                capture_output=True, text=True, check=True).stdout.strip()
-        except (OSError, subprocess.SubprocessError):
-            head = None
-        _GIT_HEAD_CACHE = (head or None,)
-    return _GIT_HEAD_CACHE[0]
-
-
-def load_bench(path: os.PathLike) -> dict:
-    doc = json.loads(pathlib.Path(path).read_text())
-    schema = int(doc.get("schema", -1))
-    if schema != BENCH_SCHEMA_VERSION:
-        raise ValueError(f"{path}: BENCH schema {schema} != supported "
-                         f"{BENCH_SCHEMA_VERSION}")
-    return doc
-
-
-def _scalar_metrics(doc: dict) -> Dict[str, float]:
-    """A BENCH doc flattened to comparable scalars (counter and gauge
-    values, histogram count/mean/p50/p95/p99)."""
-    out: Dict[str, float] = {}
-    for key, m in doc.get("metrics", {}).items():
-        t = m.get("type")
-        if t in ("counter", "gauge"):
-            out[key] = float(m["value"])
-        elif t == "histogram":
-            for f in ("count", "mean", "p50", "p95", "p99"):
-                out[f"{key}.{f}"] = float(m[f])
-    return out
-
-
-def diff_bench(a: dict, b: dict) -> List[Tuple[str, Optional[float],
-                                               Optional[float],
-                                               Optional[float]]]:
-    """Rows of (metric, old, new, pct_change); None marks one-sided keys."""
-    am, bm = _scalar_metrics(a), _scalar_metrics(b)
-    rows: List[Tuple[str, Optional[float], Optional[float],
-                     Optional[float]]] = []
-    for key in sorted(set(am) | set(bm)):
-        old, new = am.get(key), bm.get(key)
-        pct = None
-        if old is not None and new is not None and old != 0:
-            pct = (new - old) / abs(old) * 100.0
-        rows.append((key, old, new, pct))
-    return rows
 
 
 def report_str() -> str:

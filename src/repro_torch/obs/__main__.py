@@ -1,16 +1,9 @@
 """CLI for the port's observability layer (counterpart of ``repro.obs``'s).
 
-    python -m repro_torch.obs                 # summarize BENCH_*.json files
-    python -m repro_torch.obs ls              # same ("list" also works)
-    python -m repro_torch.obs show BENCH_x.json
-    python -m repro_torch.obs diff OLD NEW    # metric deltas between two
+    python -m repro_torch.obs                 # live registry (as "report")
     python -m repro_torch.obs report          # live registry of this process
     python -m repro_torch.obs trace OUT.json  # live flight recorder -> Perfetto
     python -m repro_torch.obs trace IN OUT.json   # re-export a --trace dump
-
-``ls`` lists :func:`repro_torch.obs.bench_root` (``build/repro_torch/
-bench/`` in the checkout, or ``$REPRO_TORCH_BENCH_DIR``).  ``diff`` exits
-0 always: the numbers are for humans.
 
 ``trace`` writes a Chrome-trace-event JSON (open in
 https://ui.perfetto.dev or ``chrome://tracing``): slots as tracks,
@@ -36,34 +29,6 @@ def _fmt(v) -> str:
     if isinstance(v, float) and v == int(v) and abs(v) < 1e15:
         return str(int(v))
     return f"{v:.4g}" if isinstance(v, float) else str(v)
-
-
-def _show(path: pathlib.Path) -> None:
-    doc = obs.load_bench(path)
-    print(f"== {path.name} (bench={doc['bench']}, "
-          f"schema={doc['schema']}) ==")
-    meta = doc.get("meta", {})
-    if meta:
-        print("  meta: " + ", ".join(f"{k}={v}" for k, v in
-                                     sorted(meta.items())))
-    for key, val in sorted(obs._scalar_metrics(doc).items()):
-        print(f"  {key:<52s} {_fmt(val)}")
-    rows = doc.get("router", [])
-    if rows:
-        print(f"  -- router shape histogram ({len(rows)} classes) --")
-        for r in rows[:15]:
-            print(f"  {r['op']:<13s} {r['dtype']}/{r['trans']} "
-                  f"class={r['size_class']:<10s} {r['source']:<10s} "
-                  f"x{r['count']}")
-
-
-def _diff(old: pathlib.Path, new: pathlib.Path) -> None:
-    a, b = obs.load_bench(old), obs.load_bench(new)
-    print(f"== diff {old.name} -> {new.name} ==")
-    print(f"{'metric':<52s} {'old':>12s} {'new':>12s} {'change':>9s}")
-    for key, va, vb, pct in obs.diff_bench(a, b):
-        change = f"{pct:+.1f}%" if pct is not None else "-"
-        print(f"{key:<52s} {_fmt(va):>12s} {_fmt(vb):>12s} {change:>9s}")
 
 
 _TRACE_COLS = ("queue_wait_us", "ttft_wait_us", "ttft_prefill_us",
@@ -104,38 +69,19 @@ def _trace(files) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.obs",
                                  description=__doc__.splitlines()[0])
-    ap.add_argument("cmd", nargs="?", default="list",
-                    choices=["list", "ls", "show", "diff", "report",
-                             "trace"])
-    ap.add_argument("files", nargs="*",
-                    help="BENCH_*.json path(s); for trace: [IN] OUT")
+    ap.add_argument("cmd", nargs="?", default="report",
+                    choices=["report", "trace"])
+    ap.add_argument("files", nargs="*", help="for trace: [IN] OUT")
     args = ap.parse_args(argv)
 
-    if args.cmd == "report":
-        print(obs.report_str())
-        return 0
-    if args.cmd == "show":
-        if len(args.files) != 1:
-            ap.error("show takes exactly one BENCH file")
-        _show(pathlib.Path(args.files[0]))
-        return 0
-    if args.cmd == "diff":
-        if len(args.files) != 2:
-            ap.error("diff takes exactly two BENCH files: OLD NEW")
-        _diff(pathlib.Path(args.files[0]), pathlib.Path(args.files[1]))
-        return 0
     if args.cmd == "trace":
         if _trace(args.files) != 0:
             ap.error("trace takes OUT.json (live ring) or IN.json OUT.json "
                      "(re-export a dump)")
         return 0
-    found = sorted(obs.bench_root().glob("BENCH_*.json"))
-    if not found:
-        print(f"no BENCH_*.json under {obs.bench_root()} — write one with "
-              f"repro_torch.obs.export_bench(name)")
-        return 0
-    for p in found:
-        _show(p)
+    if args.files:
+        ap.error("report takes no files")
+    print(obs.report_str())
     return 0
 
 

@@ -149,16 +149,18 @@ class PagedEngine:
         self.scheduler.submit(seq, fit_tokens=worst)
 
     def step(self) -> bool:
-        """One scheduler iteration under one tuning profile; False when
-        fully idle."""
-        with profile_mod.pinned() as gen:
-            worked = self._step()
-            if profile_mod.generation() != gen:
-                raise RuntimeError("a profile swap reached a step in flight")
-        self.steps_by_gen[gen] += 1
-        if self.tuner is not None:
-            self.tuner.poll()
-        return worked
+        """One scheduler iteration under one tuning profile (the span
+        ``serve.step``); False when fully idle."""
+        with obs.span("serve.step"):
+            with profile_mod.pinned() as gen:
+                worked = self._step()
+                if profile_mod.generation() != gen:
+                    raise RuntimeError("a profile swap reached a step in "
+                                       "flight")
+            self.steps_by_gen[gen] += 1
+            if self.tuner is not None:
+                self.tuner.poll()
+            return worked
 
     def _step(self) -> bool:
         worked = False
@@ -167,6 +169,7 @@ class PagedEngine:
             worked = True
             if not seq.admitted_once:
                 seq.admitted_once = True
+                seq.t_admit = now
                 obs.histogram("serve.admission_wait_us").record(
                     (now - seq.req.t_submit) * 1e6)
         dec = [q for q in self.scheduler.decoding() if q.budget_left > 0]
@@ -175,11 +178,16 @@ class PagedEngine:
                 self._ensure(q, q.pos + 1)
         dec = [q for q in self.scheduler.decoding() if q.budget_left > 0]
         if dec:
-            self._issue_decode(dec)
+            with obs.span("serve.decode"):
+                self._issue_decode(dec)
             worked = True
         pre = self.scheduler.next_prefill()
         if pre is not None:
-            self._prefill_chunk(pre)
+            with obs.span("serve.prefill", rid=pre.rid) as sp:
+                if sp and pre.pos == 0 and not pre.preemptions:
+                    # a request's first chunk: its wait since admission
+                    sp.set(waited_us=(sp.t0_ns * 1e-9 - pre.t_admit) * 1e6)
+                self._prefill_chunk(pre)
             worked = True
         if self._pending and (
                 len(self._pending) >= self.drain_every
@@ -292,8 +300,9 @@ class PagedEngine:
             return
         # host-side sample for the prefill boundary token only — every
         # later token is sampled on the device in the decode step
-        row = logits[0, len(segment) - 1]
-        tok = int(sample(row, self.gen, self.temperature))
+        nxt = sample(logits[0, len(segment) - 1], self.gen, self.temperature)
+        with obs.span("serve.sync", ranged=False):
+            tok = int(nxt)
         seq.out.append(tok)
         obs.counter("serve.tokens").inc()
         if len(seq.out) == 1:
@@ -311,24 +320,29 @@ class PagedEngine:
             # a new tensor, not an in-place write: earlier decode steps'
             # token tensors may still wait in _pending
             cur = self._cur.clone()
-            cur[seq.slot] = tok
+            # a blocking copy to the device
+            with obs.span("serve.sync", ranged=False):
+                cur[seq.slot] = tok
             self._cur = cur
 
     def _drain(self) -> None:
         """Pull every pending decode token to the host in one pass and
-        apply EOS / token-budget eviction."""
-        pend, self._pending = self._pending, []
-        for arr, entries in pend:
-            host = arr.cpu().numpy()
-            for q, slot in entries:
-                q.inflight -= 1
-                if q.state != sched.DECODE:
-                    continue            # evicted earlier in this drain
-                tok = int(host[slot])
-                q.out.append(tok)
-                obs.counter("serve.tokens").inc()
-                if tok == self.eos or len(q.out) >= q.req.max_new:
-                    self._finish(q)
+        apply EOS / token-budget eviction (the span ``serve.drain``; each
+        copy to the host, ``serve.sync``)."""
+        with obs.span("serve.drain"):
+            pend, self._pending = self._pending, []
+            for arr, entries in pend:
+                with obs.span("serve.sync", ranged=False):
+                    host = arr.cpu().numpy()
+                for q, slot in entries:
+                    q.inflight -= 1
+                    if q.state != sched.DECODE:
+                        continue        # evicted earlier in this drain
+                    tok = int(host[slot])
+                    q.out.append(tok)
+                    obs.counter("serve.tokens").inc()
+                    if tok == self.eos or len(q.out) >= q.req.max_new:
+                        self._finish(q)
 
     def _finish(self, seq: sched.Seq) -> None:
         self.done[seq.rid] = seq.out

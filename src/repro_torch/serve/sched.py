@@ -57,6 +57,7 @@ class Seq:
     admit_seq: int = -1                 # admission stamp; victim = max
     preemptions: int = 0
     admitted_once: bool = False
+    t_admit: float = 0.0                # perf_counter at first admission
 
     @property
     def rid(self) -> int:

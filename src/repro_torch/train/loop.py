@@ -225,18 +225,27 @@ def make_train_step(model: Model, tc: TrainConfig, be: Policy) -> Callable:
     rules (``Rules.distribute``) and the batch a batch-sharded DTensor
     (``data.make_global_batch``); the same step runs, each GEMM on its
     rank's shards, each gradient in its parameter's placements.  The loss
-    comes back as a plain, replicated scalar."""
+    comes back as a plain, replicated scalar.
+
+    Inside an ``obs.capture`` a step is the span ``train.step``, with
+    ``train.grads`` (loss, forward and backward; its device time too) and
+    AdamW's ``train.optimizer`` in it."""
     loss_fn = make_loss_fn(model, tc, be)
 
     def grads_of(pc: nn.Module, batch):
-        names, leaves = zip(*pc.named_parameters())
-        loss, _ = loss_fn(pc, batch)
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), {n: torch.zeros_like(p) if g is None
-                               else _like(g, p)
-                               for n, p, g in zip(names, leaves, gs)}
+        with obs.span("train.grads", device=True):
+            names, leaves = zip(*pc.named_parameters())
+            loss, _ = loss_fn(pc, batch)
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return loss.detach(), {n: torch.zeros_like(p) if g is None
+                                   else _like(g, p)
+                                   for n, p, g in zip(names, leaves, gs)}
 
     def train_step(state, batch):
+        with obs.span("train.step"):
+            return _train_step(state, batch)
+
+    def _train_step(state, batch):
         params = state["params"]
         pc = cast_params_for_compute(params, model.cfg)
         if tc.accum_steps > 1:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.models.common import map_params
 from repro_torch.parallel import spmd
 
@@ -83,26 +84,28 @@ def adamw_update(params: nn.Module, grads: Dict[str, torch.Tensor],
     """One AdamW step on ``params`` (f32 master) with ``grads`` (by
     parameter name, any float dtype), in place.  Returns (params,
     opt_state, {"grad_norm": the norm before clipping (a device scalar),
-    "lr"})."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(c.clip_norm / (gnorm + 1e-9), max=1.0)
-    lr = schedule(step, c)
-    b1c = float(_f32(1) - _f32(c.b1) ** _f32(step + 1))
-    b2c = float(_f32(1) - _f32(c.b2) ** _f32(step + 1))
-    m_of = dict(opt_state["m"].named_parameters())
-    v_of = dict(opt_state["v"].named_parameters())
-    for name, p in params.named_parameters():
-        g = grads[name]
-        if spmd.is_dtensor(p):           # the update is elementwise: shards
-            p, g = p.to_local(), g.to_local()
-            m, v = m_of[name].to_local(), v_of[name].to_local()
-        else:
-            m, v = m_of[name], v_of[name]
-        g = g.float() * scale
-        m.copy_(c.b1 * m + (1 - c.b1) * g)
-        v.copy_(c.b2 * v + (1 - c.b2) * g * g)
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
-        if p.ndim >= 2:                  # no decay on norms/biases/scalars
-            upd = upd + c.weight_decay * p.float()
-        p.copy_(p.float() - lr * upd)
+    "lr"}).  Inside an ``obs.capture`` it is the span ``train.optimizer``,
+    with its device time."""
+    with obs.span("train.optimizer", device=True):
+        gnorm = global_norm(grads)
+        scale = torch.clamp(c.clip_norm / (gnorm + 1e-9), max=1.0)
+        lr = schedule(step, c)
+        b1c = float(_f32(1) - _f32(c.b1) ** _f32(step + 1))
+        b2c = float(_f32(1) - _f32(c.b2) ** _f32(step + 1))
+        m_of = dict(opt_state["m"].named_parameters())
+        v_of = dict(opt_state["v"].named_parameters())
+        for name, p in params.named_parameters():
+            g = grads[name]
+            if spmd.is_dtensor(p):       # the update is elementwise
+                p, g = p.to_local(), g.to_local()
+                m, v = m_of[name].to_local(), v_of[name].to_local()
+            else:
+                m, v = m_of[name], v_of[name]
+            g = g.float() * scale
+            m.copy_(c.b1 * m + (1 - c.b1) * g)
+            v.copy_(c.b2 * v + (1 - c.b2) * g * g)
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + c.eps)
+            if p.ndim >= 2:              # no decay on norms, scalars
+                upd = upd + c.weight_decay * p.float()
+            p.copy_(p.float() - lr * upd)
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}

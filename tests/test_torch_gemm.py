@@ -178,16 +178,18 @@ def test_grads_match_jax_grad(letter, trans):
 
 
 def test_obs_span_route_memo_and_trace():
-    """The observability the Router and the engine touch: a span records
-    its dotted-path histogram; a repeat route() is a memo hit on the same
-    entry; a memo miss lands in the flight recorder; unknown events are
-    rejected."""
+    """The observability the Router and the engine touch: inside a capture
+    a span records under its parent; a repeat route() is a memo hit on the
+    same entry; a memo miss lands in the flight recorder; unknown events
+    are rejected."""
     obs.reset()
-    with obs.span("outer"):
-        with obs.span("inner"):
-            pass
-    assert obs.REGISTRY.get("span.outer.inner_us").count == 1
-    assert obs.REGISTRY.get("span.outer_us").count == 1
+    with obs.capture():
+        with obs.span("outer"):
+            with obs.span("inner"):
+                pass
+    assert [(r.name, r.parent) for r in obs.spans()] == [("outer", -1),
+                                                         ("inner", 0)]
+    assert obs.REGISTRY.collect("span.") == {}
     d1 = api.route("gemm", (8, 64, 64), "S", policy=AUTO)
     d2 = api.route("gemm", (8, 64, 64), "S", policy=AUTO)
     assert d1 is d2 and obs.ROUTES.total == 2

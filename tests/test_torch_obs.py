@@ -1,12 +1,10 @@
-"""The port's observability export against the JAX package's: the
-registry's JSON, BENCH export / load / diff, the Router's windowed shape
-feed, and ``python -m repro_torch.obs``.
+"""The port's observability against the JAX package's: the registry's
+JSON and the Router's windowed shape feed; and ``python -m
+repro_torch.obs``.
 
 Both packages get the same operations in the same order (the same metric
 updates, the same routed shapes, the same injected clock) and must give
 the same documents."""
-import json
-import pathlib
 import random
 
 import pytest
@@ -14,8 +12,6 @@ import pytest
 from repro import api as japi, obs as jobs
 from repro_torch import api, obs
 from repro_torch.obs import __main__ as obs_cli
-
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -127,38 +123,7 @@ def test_windowed_counts_survive_a_profile_invalidation():
     assert obs.ROUTES.windowed(4, now=10.0) == [{}]
 
 
-def test_bench_export_load_and_diff_rows_equal_the_reference(tmp_path):
-    """Each package exports its registry; loaded back, both packages'
-    ``diff_bench`` give the same rows on the same documents."""
-    docs = {}
-    for name, o, seed in (("port", obs, 0), ("ref", jobs, 0),
-                          ("port2", obs, 3)):
-        o.reset()
-        _feed_metrics(o, seed)
-        p = o.export_bench(name, {"arch": "olmo-smoke"}, root=tmp_path)
-        assert p == tmp_path / f"BENCH_{name}.json"
-        docs[name] = o.load_bench(p)
-    assert docs["port"]["metrics"] == docs["ref"]["metrics"]
-    assert docs["port"]["schema"] == jobs.BENCH_SCHEMA_VERSION == \
-        obs.BENCH_SCHEMA_VERSION
-    for a, b in (("port", "port2"), ("ref", "port2"), ("port2", "ref")):
-        rows = obs.diff_bench(docs[a], docs[b])
-        assert rows == jobs.diff_bench(docs[a], docs[b])
-        assert rows
-    assert obs._scalar_metrics(docs["port"]) == \
-        jobs._scalar_metrics(docs["ref"])
-    # one-sided keys and a zero base give None, as in the reference
-    only = {"schema": 1, "metrics": {"x": {"type": "counter", "value": 0}}}
-    assert obs.diff_bench(only, {"schema": 1, "metrics": {}}) == \
-        jobs.diff_bench(only, {"schema": 1, "metrics": {}}) == \
-        [("x", 0.0, None, None)]
-    bad = tmp_path / "BENCH_bad.json"
-    bad.write_text(json.dumps({"schema": 99}))
-    with pytest.raises(ValueError, match="schema"):
-        obs.load_bench(bad)
-
-
-def test_router_snapshot_rows(tmp_path):
+def test_router_snapshot_rows():
     r = api.Router(api.Policy(backend="auto"))
     for _ in range(3):
         r.route("gemm", (45, 45, 45), "S")
@@ -168,64 +133,24 @@ def test_router_snapshot_rows(tmp_path):
                        "size_class": "5-5-5", "use_kernel": True,
                        "source": "analytical", "count": 3}
     assert rows[1]["use_kernel"] is False and rows[1]["count"] == 1
-    doc = obs.load_bench(obs.export_bench("r", root=tmp_path))
-    assert doc["router"] == rows
     assert "router shape histogram (4 decisions)" in obs.report_str()
 
 
-def test_trajectory_is_kept_across_exports(tmp_path):
-    obs.counter("t.x").inc()
-    obs.record_trajectory("traj", {"tok_s": 1.5}, root=tmp_path)
-    obs.record_trajectory("traj", {"tok_s": 2.5}, root=tmp_path)
-    p = obs.export_bench("traj", root=tmp_path)
-    doc = obs.load_bench(p)
-    assert [r["tok_s"] for r in doc["trajectory"]] == [1.5, 2.5]
-    assert doc["metrics"]["t.x"]["value"] == 1
-    assert all(r["recorded_unix"] > 0 for r in doc["trajectory"])
-
-
-def test_bench_root_is_never_the_repository_root(tmp_path, monkeypatch):
-    """The default lands under build/repro_torch/bench/ in the checkout,
-    which .gitignore lists; the environment variable moves it; nothing
-    is written at the root, which holds the reference's BENCH files."""
-    monkeypatch.delenv(obs.BENCH_DIR_ENV, raising=False)
-    root = obs.bench_root()
-    assert root == ROOT / "build" / "repro_torch" / "bench"
-    assert root.resolve() != ROOT.resolve()
-    assert "build/" in (ROOT / ".gitignore").read_text().split()
-    before = sorted(ROOT.glob("BENCH_*.json"))
-    monkeypatch.setenv(obs.BENCH_DIR_ENV, str(tmp_path / "bench"))
-    assert obs.bench_root() == tmp_path / "bench"
-    p = obs.export_bench("where")
-    assert p == tmp_path / "bench" / "BENCH_where.json" and p.exists()
-    obs.record_trajectory("where", {"n": 1})
-    assert sorted(ROOT.glob("BENCH_*.json")) == before
-
-
-def test_cli_ls_show_diff_and_report(tmp_path, monkeypatch, capsys):
-    monkeypatch.setenv(obs.BENCH_DIR_ENV, str(tmp_path))
-    assert obs_cli.main(["ls"]) == 0
-    assert "no BENCH_*.json under" in capsys.readouterr().out
+def test_cli_ls_show_diff_and_report(capsys):
+    """The CLI prints the live registry (``report``, the default) and
+    re-exports traces; the BENCH file commands ``ls``, ``show`` and
+    ``diff`` are gone, and bad arguments exit non-zero."""
     _feed_metrics(obs)
     api.Router(api.Policy(backend="auto")).route("gemm", (45, 45, 45), "S")
-    a = obs.export_bench("a", {"run": 1})
-    obs.counter("serve.requests").inc(7)
-    b = obs.export_bench("b")
-    for cmd in ([], ["list"], ["ls"]):
+    for cmd in ([], ["report"]):
         assert obs_cli.main(cmd) == 0
         out = capsys.readouterr().out
-        assert "BENCH_a.json" in out and "BENCH_b.json" in out
-    assert obs_cli.main(["show", str(a)]) == 0
-    out = capsys.readouterr().out
-    assert "meta: run=1" in out and "serve.ttft_us.p50" in out
-    assert "router shape histogram (1 classes)" in out
-    assert obs_cli.main(["diff", str(a), str(b)]) == 0
-    out = capsys.readouterr().out
-    assert "serve.requests" in out and "+100.0%" in out
-    assert obs_cli.main(["report"]) == 0
-    assert "== repro_torch.obs report ==" in capsys.readouterr().out
-    for bad in (["show"], ["diff", str(a)], ["trace"],
-                ["trace", "a", "b", "c"]):
+        assert "== repro_torch.obs report ==" in out
+        assert "serve.requests" in out
+        assert "router shape histogram (1 decisions)" in out
+    for bad in (["ls"], ["list"], ["show", "BENCH_a.json"],
+                ["diff", "BENCH_a.json", "BENCH_b.json"], ["report", "x"],
+                ["trace"], ["trace", "a", "b", "c"]):
         with pytest.raises(SystemExit) as e:
             obs_cli.main(bad)
         assert e.value.code != 0
