@@ -9,8 +9,10 @@ fails the run:
 1. card   — prints ``nvidia-smi --query-gpu=name,power.limit`` as is;
 2. build  — compiles every instance of the kernel table, for the IAAT
             GEMM (three load paths) and the grouped kernels (S/D/H, two
-            load paths), the complex Karatsuba kernel (C/Z), and the flash
-            attention instances (ptxas must report all; cuobjdump's SASS of
+            load paths), the complex Karatsuba kernel (C/Z), the flash
+            attention, SSD and paged-attention instances (ptxas must
+            report all, and prints each paged instance's registers and
+            spill bytes; cuobjdump's SASS of
             the tensor-core flash instances must hold HGMMA, that of the
             bf16 grouped ring instances HMMA.16816.F32.BF16, that of
             the S, D and bf16 scalar grouped instances no HMMA, that of
@@ -322,6 +324,17 @@ fails the run:
             counter FLOPs of one sharded decode step under ``library``
             on the card equal to the dry run's fake-world meta count of
             the same step; peak memory per rank, seconds.
+46. paged kernels — the paged-attention kernel (csrc/paged_attention.cu)
+            against its plain version at the chat cell's widths (32
+            slots, 16 kv heads of 128, tables of 72 blocks of 16): decode
+            over lengths drawn in 1..480 and over full 1152-key tables,
+            a 32-token prefill chunk fresh, at 368..399 and with replay
+            rows; within 2^-7 of the attention over |v| plus a bf16 step,
+            one launch a call; loop, device and plain times and the bound
+            by the bytes of the live K/V, printed in the ``kernels`` line.
+            The serve phases of the attention families (olmo-1b, moonshot,
+            gemma3, glm4, smollm, mixtral) must launch it, and each
+            decode step of phase 5 once a layer.
 Phase 37 also prints the share of outputs of the IAAT kernel equal to
 the bit to torch.matmul's at the train step's GEMM shapes (a reading,
 not a check).
@@ -388,6 +401,7 @@ def phase_card():
 def phase_build():
     from repro_torch.core import kernelgen
     from repro_torch.kernels import build, flash_attention, ssd
+    from repro_torch.kernels import paged_attention as pa
     import re
     t0 = time.perf_counter()
     n = kernelgen.install()
@@ -406,7 +420,7 @@ def phase_build():
                         "cx_gemm_kernel",
                         "flash_attention_kernel", "flash_attention_tc_kernel",
                         "ssd_state_kernel", "ssd_pass_kernel",
-                        "ssd_out_kernel")}
+                        "ssd_out_kernel", "paged_attention_kernel")}
     real = sum(1 for i in kernelgen.instances()
                if i[0] in kernelgen.KERNEL_LETTERS)
     cx = n - real
@@ -449,7 +463,8 @@ def phase_build():
             "flash_attention_kernel": want_flash,
             "flash_attention_tc_kernel": n_tc,
             "ssd_state_kernel": want_ssd, "ssd_pass_kernel": 1,
-            "ssd_out_kernel": want_ssd}
+            "ssd_out_kernel": want_ssd,
+            "paged_attention_kernel": len(pa.HEAD_DIMS) * len(pa.ROWS)}
     if len(regs) != sum(want.values()) or \
             len(flash) != want_flash + n_tc or per != want:
         raise RuntimeError("ptxas reported another kernel count than the "
@@ -498,11 +513,23 @@ def phase_build():
         f"{k}: " + ", ".join(f"{i} {r}/{sp}" for i, (r, sp) in
                              sorted(v.items()))
         for k, v in ssdr.items()))
+    # the paged-attention instances: head dim and rows a block
+    pgr = {}
+    for e in ptx.split("Compiling entry function")[1:]:
+        m = re.search(r"paged_attention_kernelILi(\d+)ELi(\d+)E",
+                      e.split("'")[1])
+        if m:
+            pgr[f"D{m.group(1)} R{m.group(2)}"] = (
+                int(re.search(r"Used (\d+) registers", e).group(1)),
+                int(re.search(r"(\d+) bytes spill stores", e).group(1)))
+    log("build: paged_attention instances (registers/spill bytes): "
+        + ", ".join(f"{k} {r}/{sp}" for k, (r, sp) in sorted(pgr.items())))
     return {"flash_instances": flash, "hgmma": hgmma,
             "hgmma_line": hgmma_line, "grouped_hmma": hmma,
             "grouped_hmma_line": hmma_line, "grouped_registers": gr,
             "cx_dmma": dmma, "cx_dmma_line": dmma_line,
-            "cx_registers": cxr, "ssd_registers": ssdr}
+            "cx_registers": cxr, "ssd_registers": ssdr,
+            "paged_registers": pgr}
 
 
 def flash_sass(obj, n_tc):
@@ -880,24 +907,26 @@ def _reset_counts():
     """Every kernel's launch count and the Router's shape log to 0."""
     from repro_torch import obs
     from repro_torch.kernels import (flash_attention, grouped_gemm,
-                                     iaat_gemm, ssd)
+                                     iaat_gemm, paged_attention, ssd)
     _HEAD["iaat"] = 0
     _BY_SHAPE.clear()
     obs.ROUTES.reset()
     iaat_gemm.reset_launch_count()
     grouped_gemm.reset_launch_count()
     flash_attention.reset_launch_count()
+    paged_attention.reset_launch_count()
     ssd.reset_launch_count()
 
 
 def _counts():
     from repro_torch.kernels import (flash_attention, grouped_gemm,
-                                     iaat_gemm, ssd)
+                                     iaat_gemm, paged_attention, ssd)
     return {"iaat_gemm": iaat_gemm.launch_count("iaat_gemm"),
             "cx_gemm": iaat_gemm.launch_count("cx_gemm"),
             "batched_gemm": grouped_gemm.launch_count("batched_gemm"),
             "ragged_gemm": grouped_gemm.launch_count("ragged_gemm"),
             "flash_attention": flash_attention.launch_count(),
+            "paged_attention": paged_attention.launch_count(),
             "ssd_scan": ssd.launch_count(),
             "ssd_scans": ssd.scan_count(),
             # per kernel or path within the two redesigned wrappers
@@ -1015,9 +1044,11 @@ def phase_step(torch, cfg, params):
     For an MoE model, also the share of (token, layer) top-k expert sets
     the two runs agree on; if a flipped choice puts the logits past the
     tolerance, the plain run is repeated pinned to the kernel run's
-    choices, and the result says so."""
+    choices, and the result says so.  The kernel's decode step attends
+    through the paged-attention kernel, one launch a layer."""
     import copy
     from repro_torch import api
+    from repro_torch.kernels import paged_attention
     from repro_torch.models import layers, lm
     kern, plain = api.Policy(backend="kernel"), api.Policy(backend="library")
     BS, slots, nmax = 16, 4, 4
@@ -1040,8 +1071,10 @@ def phase_step(torch, cfg, params):
                             device="cuda")
         pos = torch.tensor(lens, device="cuda")
         ps2, ps3 = copy.deepcopy(ps), copy.deepcopy(ps)
+        n0 = paged_attention.launch_count()
         with _ExpertChoices(layers) as ck:
             lk = lm.paged_decode(params, cfg, kern, cur, ps, tables, pos)
+        out["paged_attention_launches"] = paged_attention.launch_count() - n0
         with _ExpertChoices(layers) as cp:
             lp = lm.paged_decode(params, cfg, plain, cur, ps2, tables, pos)
         torch.cuda.synchronize()
@@ -1080,9 +1113,14 @@ def phase_step(torch, cfg, params):
     agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
     log(f"step {cfg.name}: full-width paged_decode kernel vs plain: max abs "
         f"err {ab:.4g}, rel {rel:.3g} (tol {STEP_TOL}), argmax agreement "
-        f"{agree:.2f}")
+        f"{agree:.2f}; paged-attention launches "
+        f"{out['paged_attention_launches']} (one a layer)")
     if not rel <= STEP_TOL:
         raise AssertionError(f"decode step rel err {rel} > {STEP_TOL}")
+    if out["paged_attention_launches"] != cfg.n_layers:
+        raise AssertionError(f"decode step: {out['paged_attention_launches']}"
+                             f" paged-attention launches, want one a layer "
+                             f"({cfg.n_layers})")
     out.update({"max_abs_err": ab, "rel_err": rel, "argmax_agree": agree})
     return out
 
@@ -2013,6 +2051,140 @@ def phase_flash_kernels(torch, cfg, serve_shape, launches):
                                               "library_device_ms",
                                               "bound_ms", "bound_by",
                                               "max_abs_err")},
+    }
+    return entry, rows
+
+
+# --------------------------------------------------------------------------
+# The paged-attention kernel at the chat cell's shapes.
+# --------------------------------------------------------------------------
+
+#: the benchmark's chat cell (perfbench ``olmo-1b.chat-32``): 32 slots,
+#: olmo-1b's 16 kv heads (16 q heads) of 128, blocks of 16 keys, tables of
+#: 72 blocks (max_len 1152), prefill chunks of 32 tokens
+PAGED_CHAT = {"Hkv": 16, "rep": 1, "D": 128, "BS": 16, "nmax": 72}
+
+
+def _paged_operands(torch, g, lens, C, Hkv, rep, D, BS, nmax):
+    """Pools, block table, q_pos and q on the card for slots of ``lens``
+    keys: each slot's blocks at shuffled pool ids after the null block 0,
+    the table padded with it, q for the C rows ending at each slot's
+    length, a (B, H, C, D) view of (B, C, H, D) as the model passes it."""
+    need = [-(-n // BS) for n in lens]
+    P = 1 + sum(need)
+    k, v = (torch.randn((P, Hkv, BS, D), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    ids = (torch.randperm(P - 1, generator=g, device="cuda") + 1).tolist()
+    table = torch.zeros((len(lens), nmax), dtype=torch.int64)
+    q_pos = torch.zeros((len(lens), C), dtype=torch.int64)
+    for b, n in enumerate(lens):
+        table[b, :need[b]] = torch.tensor(ids[:need[b]])
+        ids = ids[need[b]:]
+        q_pos[b] = torch.arange(n - C, n)
+    q = torch.randn((len(lens), C, Hkv * rep, D), generator=g,
+                    device="cuda").to(torch.bfloat16).transpose(1, 2)
+    return q, k, v, table.cuda(), q_pos.cuda()
+
+
+def _paged_row(torch, g, what, lens, C=1, n_prompt=None):
+    """The paged-attention kernel against ``paged_attention_plain`` at the
+    chat cell's widths for slots of ``lens`` keys (C rows each; rows at
+    positions >= ``n_prompt`` in the decode order): every output within
+    2^-7 of the same attention over |v| plus one bf16 step of the output
+    (the bf16 rounding of p either side of a tie; the card test's
+    tolerance), and one launch a call.  Then loop times (CUDA events) of
+    both, the kernel's torch.profiler device time, and the bound by bytes:
+    each slot's live K and V (the keys its rows see) and q and the output,
+    each moved once, at HBM bandwidth."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import paged_attention as pa
+    sh = PAGED_CHAT
+    q, k, v, table, q_pos = _paged_operands(torch, g, lens, C, **sh)
+    kw = {"scale": sh["D"] ** -0.5, "decode_from": None if n_prompt is None
+          else torch.full((len(lens),), n_prompt, device="cuda")}
+    n0 = pa.launch_count()
+    got = pa.paged_attention(q, k, v, table, q_pos, **kw)
+    if pa.launch_count() != n0 + 1:
+        raise AssertionError(f"paged {what}: {pa.launch_count() - n0} "
+                             "launches for one call")
+    want = pa.paged_attention_plain(q, k, v, table, q_pos, **kw)
+    over_abs_v = pa.paged_attention_plain(q, k, v.abs(), table, q_pos, **kw)
+    got, want, over_abs_v = got.double(), want.double(), over_abs_v.double()
+    err = (got - want).abs()
+    tol = BF16_STEP * (over_abs_v + want.abs()) + 1e-6
+    if not bool(torch.isfinite(got).all()) or not bool((err <= tol).all()):
+        raise AssertionError(f"paged {what}: max abs err {err.max().item()},"
+                             f" past the tolerance at "
+                             f"{int((err > tol).sum())} outputs")
+    B, H, D = len(lens), sh["Hkv"] * sh["rep"], sh["D"]
+    rows = pa.rows_per_block(sh["rep"] * C, D, sh["BS"], sh["nmax"] *
+                             sh["BS"], B * sh["Hkv"])
+    t = {"ms": _time_ms(torch, lambda i: pa.paged_attention(
+            q, k, v, table, q_pos, **kw), 50),
+         "plain_ms": _time_ms(torch, lambda i: pa.paged_attention_plain(
+             q, k, v, table, q_pos, **kw), 10),
+         "device_ms": _device_ms(torch, lambda i: pa.paged_attention(
+             q, k, v, table, q_pos, **kw), 20, "paged_attention",
+             per_call=1)[0]}
+    live = sum(lens) * sh["Hkv"] * D * 2 * 2
+    nbytes = live + 2 * B * H * C * D * 2
+    row = {"kernel": "paged_attention", "at": what, "B": B, "H": H,
+           "Hkv": sh["Hkv"], "C": C, "D": D, "BS": sh["BS"],
+           "nmax": sh["nmax"], "rows_per_block": rows,
+           "tile_blocks": pa.tile_blocks(rows, D, sh["BS"], sh["nmax"]),
+           "mean_len": sum(lens) / B, "decode_from": n_prompt, **t,
+           "bound_ms": nbytes / cost.HBM_BW * 1e3, "bound_by": "bytes",
+           "bytes": nbytes, "live_kv_bytes": live,
+           "max_abs_err": err.max().item()}
+    row["roofline_pct"] = (100 * row["bound_ms"] / t["device_ms"]
+                           if t["device_ms"] else None)
+    log(f"kernel time paged_attention {what}: B={B} H={H} Hkv={sh['Hkv']} "
+        f"C={C} D={D} mean length {row['mean_len']:.1f} (rows a block "
+        f"{rows}): kernel {t['ms']:.4f} ms (device {t['device_ms']} ms), "
+        f"plain {t['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"(bytes, {nbytes} B); max abs err {row['max_abs_err']:.4g}")
+    return row
+
+
+def phase_paged_kernels(torch, launches):
+    """The paged-attention kernel at the chat cell's shapes against its
+    plain version, timed (:func:`_paged_row`): a decode call over 32 slots
+    of lengths drawn uniform in 1..480 (the cell's live contexts, mean
+    about 240), one over 32 full 1152-key tables, and a 32-token prefill
+    chunk of one slot at positions 368..399, fresh (32..63) and with
+    replay rows from 390.  ``launches``: the kernel's launches in the
+    olmo-1b serve under ``auto``."""
+    g = torch.Generator(device="cuda").manual_seed(30)
+    lens = torch.randint(1, 481, (32,), generator=g, device="cuda").tolist()
+    rows = [_paged_row(torch, g, "decode, 32 slots of 1..480 keys", lens),
+            _paged_row(torch, g, "decode, 32 slots of 1152 keys",
+                       [1152] * 32),
+            _paged_row(torch, g, "prefill chunk at 368..399", [400], C=32),
+            _paged_row(torch, g, "prefill chunk at 32..63", [64], C=32),
+            _paged_row(torch, g, "prefill chunk at 368..399, replay from "
+                       "390", [400], C=32, n_prompt=390)]
+    main = rows[0]
+    entry = {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": "src/repro/models/layers.py:111 (paged_attend, plain "
+                    "jnp; no TPU kernel)",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "device_ms": main["device_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "at": f"one olmo-1b decode call's attention in the chat cell: "
+              f"{main['B']} slots x {main['H']} heads x D {main['D']}, "
+              f"mean {main['mean_len']:.1f} keys, bf16",
+        "at_1152": {k: rows[1][k] for k in ("ms", "device_ms", "plain_ms",
+                                            "bound_ms", "max_abs_err")},
+        "at_chunk": {k: rows[2][k] for k in ("ms", "device_ms", "plain_ms",
+                                             "bound_ms", "rows_per_block",
+                                             "max_abs_err")},
     }
     return entry, rows
 
@@ -3229,7 +3401,8 @@ def phase_gemma3(torch, cfg):
     forced kernel, the wave's long prompt past the window, a paged decode
     step and the long prompt against the plain arithmetic; the flash
     launches at D 256 and the vocabulary head's IAAT launches printed."""
-    runs, params = phase_serve(torch, GEMMA_ARCH, cfg, 6, 16, ["iaat_gemm"])
+    runs, params = phase_serve(torch, GEMMA_ARCH, cfg, 6, 16,
+                               ["iaat_gemm", "paged_attention"])
     out = {"serve": runs, "step": phase_step(torch, cfg, params)}
     out["wave"] = phase_wave_serve(torch, cfg, params,
                                    long_prompt=GEMMA_LONG)
@@ -3253,7 +3426,7 @@ def phase_gemma3(torch, cfg):
 
 
 def phase_paged(torch, arch, cfg, requests=4, max_new=8,
-                kernels=("iaat_gemm",)):
+                kernels=("iaat_gemm", "paged_attention")):
     """A config at full width (and the depth ``cfg`` has) on PagedEngine
     under ``auto`` and the forced kernel (:func:`phase_serve`: every
     kernel of ``kernels`` launched, every IAAT launch on the ring, every
@@ -5505,7 +5678,8 @@ def main():
         report["ssd_check"] = timed("ssd check", phase_ssd_check, torch,
                                     scfg)
         report["serve"], params = timed("serve", phase_serve, torch,
-                                        "olmo-1b", cfg, 6, 16, ["iaat_gemm"])
+                                        "olmo-1b", cfg, 6, 16,
+                                        ["iaat_gemm", "paged_attention"])
         report["step"] = timed("step", phase_step, torch, cfg, params)
         report["wave_serve"] = timed("wave serve", phase_wave_serve, torch,
                                      cfg, params)
@@ -5537,7 +5711,7 @@ def main():
                                              phase_grouped_check, torch, mcfg)
         report["moe_serve"], params = timed(
             "moe serve", phase_serve, torch, MOE_ARCH, mcfg, 5, 8,
-            ["batched_gemm", "iaat_gemm"])
+            ["batched_gemm", "iaat_gemm", "paged_attention"])
         report["online_grouped"] = timed("online grouped",
                                          phase_online_grouped, torch,
                                          report["card"])
@@ -5562,7 +5736,8 @@ def main():
             for a in DENSE_ARCHS})
         report["mixtral"] = timed("mixtral", phase_paged, torch,
                                   MIXTRAL_ARCH, _mixtral_cfg(), 5, 8,
-                                  ("batched_gemm", "iaat_gemm"))
+                                  ("batched_gemm", "iaat_gemm",
+                                   "paged_attention"))
         report["zamba2"] = timed("zamba2", phase_zamba2, torch,
                                  configs.get_config(ZAMBA_ARCH))
         report["vlm"] = timed("vlm", phase_vlm, torch,
@@ -5584,6 +5759,9 @@ def main():
         ssd_entry, ssd_rows = timed(
             "ssd kernels", phase_ssd_kernels, torch, scfg,
             report["ssm_forward"]["launches"])
+        paged, paged_rows = timed(
+            "paged kernels", phase_paged_kernels, torch,
+            report["serve"]["auto"]["launch_counts"]["paged_attention"])
         gem, zam = report["gemma3"], report["zamba2"]["forward"]
         slice_rows = timed("slice kernels", phase_slice_kernels, torch, {
             "iaat_gemm": {
@@ -5634,7 +5812,7 @@ def main():
         if dry is not None and dry.poll() is None:
             dry.kill()
             dry.wait()
-    report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry]
+    report["kernels"] = [entry] + grouped + [flash, cx, ssd_entry, paged]
     for e in report["kernels"]:
         # the same kernel at the later slices' shapes (decoder-only
         # families, then enc-dec and forward_train, then training)
@@ -5645,6 +5823,7 @@ def main():
         if more:
             e["slice_shapes"] = more
     report["shapes"] = rows + grouped_rows + flash_rows + cx_rows + ssd_rows \
+        + paged_rows \
         + [r for rs in slice_rows.values() for r in rs] \
         + [r for rs in encdec_rows.values() for r in rs] \
         + [r for rs in train_rows.values() for r in rs] \

@@ -9,8 +9,8 @@ once per complex letter (C, Z), each object holding the template
 instances the install-time table (``core.kernelgen``) lists for that
 letter, and each source of :data:`SOURCES_ONCE`
 (``csrc/flash_attention.cu`` and ``csrc/ssd.cu``, each with its f32 and
-bf16 instances in one object) once; all nineteen ``nvcc`` jobs start
-together.  The objects are linked
+bf16 instances in one object, and ``csrc/paged_attention.cu``, bf16
+only) once; all twenty ``nvcc`` jobs start together.  The objects are linked
 into one shared library with a plain C interface.  The library lands
 in ``build/repro_torch/<key>/`` at the root of the checkout, where ``key``
 hashes the sources, the generated instance lists and the flags, so an
@@ -51,7 +51,7 @@ _PATHS = {"iaat_gemm": IAAT_PATHS, "grouped_gemm": GROUPED_PATHS}
 #: complex grouped kernel, as in the reference
 SOURCES_CX = ("cx_gemm",)
 #: kernel sources built once, their instances independent of the table
-SOURCES_ONCE = ("flash_attention", "ssd")
+SOURCES_ONCE = ("flash_attention", "ssd", "paged_attention")
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -185,6 +185,10 @@ def load() -> ctypes.CDLL:
         lib.ssd_scan.argtypes = [i, i, p, s, p, s, p, p, s, p, s, p, s, i, i,
                                  i, i, i, i, i, p, p, ctypes.POINTER(i)]
         lib.ssd_scan.restype = i
+        lib.paged_attention.argtypes = [i, p, s, p, p, ll, ll, p, ll, ll, p,
+                                        ll, ll, p, ll, p, s, i, i, i, i, i,
+                                        i, i, i, i, ctypes.c_float, ll, p]
+        lib.paged_attention.restype = i
         lib.iaat_error_string.argtypes = [i]
         lib.iaat_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -1,6 +1,8 @@
 """Plain PyTorch oracles (counterparts of ``repro/kernels/ref.py``).
 
-The GEMM, grouped-GEMM, RMSNorm, attention and Mamba-2 SSD oracles.
+The GEMM, grouped-GEMM, RMSNorm, attention and Mamba-2 SSD oracles, and
+``f32_einsum``, the f32-accumulating einsum the model's plain attention
+and MoE combine share.
 ``chunked_mha`` is also the model's library attention path
 (``models/layers.py::_full_attn``), ``ref_ssd`` the model's library SSD
 path (``models/ssm.py::mamba``) and ``ref_ssd_decode_step`` the serving
@@ -56,6 +58,13 @@ def ref_rmsnorm(x, w, eps: float = 1e-6):
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def f32_einsum(eq: str, a, b):
+    """einsum with f32 accumulation and an f32 result (the reference's
+    ``preferred_element_type=jnp.float32``): operands are widened first,
+    so every product is exact."""
+    return torch.einsum(eq, a.float(), b.float())
 
 
 # --------------------------------------------------------------------------

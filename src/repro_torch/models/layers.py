@@ -6,12 +6,13 @@ an encoder's precomputed K/V), the gated MLP and the MoE layer
 Every projection goes through ``common.mm`` (the IAAT dispatch hook);
 attention over a whole prompt switches between the CUDA flash kernel and
 the chunked library oracle by the ``Policy``, as the reference switches
-between its Pallas kernel and ``ref.chunked_mha``.  Weights keep the
-reference's ``(d_in, d_out)`` layout, so every GEMM shape the Router sees
-is the reference's.  Reductions are taken in the same order and precision
-as the reference (f32 accumulation via operands widened to f32, in place
-of ``preferred_element_type``), because token identity in serving depends
-on them.
+between its Pallas kernel and ``ref.chunked_mha``; attention over a paged
+pool between the CUDA paged-attention kernel and its plain ops.  Weights
+keep the reference's ``(d_in, d_out)`` layout, so every GEMM shape the
+Router sees is the reference's.  Reductions are taken in the same order
+and precision as the reference (f32 accumulation via operands widened to
+f32, in place of ``preferred_element_type``), because token identity in
+serving depends on them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch import api, obs
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import flash_attention, ref
+from repro_torch.kernels import flash_attention, paged_attention, ref
 from repro_torch.models.common import mm, rope
 from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain, moe_shard_count
@@ -56,13 +57,6 @@ def _split_heads(x, n, hd):
 def _merge_heads(x):
     B, H, S, hd = x.shape
     return x.transpose(1, 2).reshape(B, S, H * hd)
-
-
-def _f32_einsum(eq: str, a, b):
-    """einsum with f32 accumulation and an f32 result (the reference's
-    ``preferred_element_type=jnp.float32``): operands are widened first,
-    so every product is exact."""
-    return torch.einsum(eq, a.float(), b.float())
 
 
 def _full_attn(q, k, v, be: Policy, *, causal, window, q_offset, scale):
@@ -116,11 +110,11 @@ def decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
     if window is not None:
         ok &= p_s > pos - window
     qf = q.reshape(B, Hkv, rep, hd)
-    logits = _f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
+    logits = ref.f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
     logits = torch.where(ok, logits,
                          torch.tensor(float("-inf"), device=q.device))
     p = torch.softmax(logits, dim=-1)
-    out = _f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype), v_buf)
+    out = ref.f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype), v_buf)
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
@@ -153,7 +147,7 @@ def split_decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
     if window is not None:
         ok &= p_s > pos - window
     qf = q.reshape(B, Hkv, rep, hd)
-    logits = _f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
+    logits = ref.f32_einsum("bkrd,bksd->bkrs", qf, k_buf) * scale
     logits = torch.where(ok, logits,
                          torch.tensor(float("-inf"), device=q.device))
     # the token's own slot is valid on some rank, so the global max is
@@ -161,8 +155,8 @@ def split_decode_attend(q, k_buf, v_buf, pos: int, *, window: Optional[int],
     m = reduce(logits.amax(-1, keepdim=True), "max")
     e = torch.exp(logits - m)
     p = e / reduce(e.sum(-1, keepdim=True), "sum")
-    out = reduce(_f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype), v_buf),
-                 "sum")
+    out = reduce(ref.f32_einsum("bkrs,bksd->bkrd", p.to(v_buf.dtype),
+                                v_buf), "sum")
     return out.reshape(B, H, 1, hd).to(q.dtype)
 
 
@@ -197,7 +191,7 @@ def _sharded_decode(q, k, v, k_buf, v_buf, pos: int, *,
     return spmd.from_local(y, mesh, qpl, q.shape)
 
 
-def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
+def paged_attend(q, k_pool, v_pool, block_table, q_pos, be: Policy, *,
                  scale: float, window: Optional[int] = None,
                  decode_from=None):
     """Attention over a paged KV pool, read through a block table.
@@ -205,55 +199,28 @@ def paged_attend(q, k_pool, v_pool, block_table, q_pos, *,
     q: (B, H, C, hd); k_pool/v_pool: (P, Hkv, BS, hd) — one layer's pool;
     block_table: (B, nmax) pool ids in logical order (padded with the null
     block 0); q_pos: (B, C) absolute query positions.  Flattened key j of
-    the gathered buffer holds sequence position j, so the mask is
+    a slot's table holds sequence position j, so the mask is
     ``j <= q_pos``.
 
     Decode rows (C == 1) take the grouped-GQA normalised-softmax order;
     prefill rows take the repeated-KV unnormalised-exp (flash) order, and
     rows at ``q_pos >= decode_from`` (recompute-resume replays of decoded
     tokens) take the decode order inside a C > 1 chunk — the reference's
-    exact reduction orders (``layers.py:151-187``)."""
-    B, H, C, hd = q.shape
-    Hkv, BS = k_pool.shape[1], k_pool.shape[2]
-    nmax = block_table.shape[1]
-    rep = H // Hkv
-    kg = k_pool[block_table].permute(0, 2, 1, 3, 4) \
-        .reshape(B, Hkv, nmax * BS, hd)
-    vg = v_pool[block_table].permute(0, 2, 1, 3, 4) \
-        .reshape(B, Hkv, nmax * BS, hd)
-    key_pos = torch.arange(nmax * BS, device=q.device)
-    ok = key_pos[None, None, :] <= q_pos[:, :, None]            # (B, C, S)
-    if window is not None:
-        ok &= key_pos[None, None, :] > q_pos[:, :, None] - window
-    with obs.span("serve.sync", ranged=False):  # a blocking copy
-        neg = torch.tensor(float("-inf"), device=q.device)
-    if C == 1:
-        qf = q.reshape(B, Hkv, rep, hd)
-        logits = _f32_einsum("bkrd,bksd->bkrs", qf, kg) * scale
-        logits = torch.where(ok[:, None, None, 0, :], logits, neg)
-        p = torch.softmax(logits, dim=-1)
-        out = _f32_einsum("bkrs,bksd->bkrd", p.to(vg.dtype), vg)
-        return out.reshape(B, H, 1, hd).to(q.dtype)
-    kb = torch.repeat_interleave(kg, rep, dim=1)
-    vb = torch.repeat_interleave(vg, rep, dim=1)
-    s = _f32_einsum("bhqd,bhkd->bhqk", q, kb) * scale
-    s = torch.where(ok[:, None], s, neg)
-    m = s.amax(-1)                     # rows always see >= 1 valid key
-    p = torch.exp(s - m[..., None])
-    p = torch.where(ok[:, None], p, torch.zeros((), device=q.device))
-    l = p.sum(-1)
-    acc = _f32_einsum("bhqk,bhkd->bhqd", p.to(vb.dtype), vb)
-    flash = (acc / torch.clamp(l, min=1e-37)[..., None]).to(q.dtype)
-    if decode_from is None:
-        return flash
-    qf = q.reshape(B, Hkv, rep, C, hd)
-    logits = _f32_einsum("bkrqd,bksd->bkrqs", qf, kg) * scale
-    logits = torch.where(ok[:, None, None], logits, neg)
-    pd = torch.softmax(logits, dim=-1)
-    outd = _f32_einsum("bkrqs,bksd->bkrqd", pd.to(vg.dtype), vg)
-    outd = outd.reshape(B, H, C, hd).to(q.dtype)
-    replay = q_pos >= decode_from[:, None]                      # (B, C)
-    return torch.where(replay[:, None, :, None], outd, flash)
+    exact reduction orders (``layers.py:151-187``).  The CUDA paged
+    attention kernel computes them when the policy's non-GEMM family is
+    the kernel (``be.use_kernels``) and the pools are ones it takes
+    (``paged_attention.applies``: bf16 on the card at head dim 64, 128 or
+    256); else the plain ops do.  The call is the unranged span
+    ``model.paged_attend``, its ``path`` "kernel" or "plain"."""
+    kernel = (q.dtype == k_pool.dtype and not spmd.any_dtensor(q, k_pool)
+              and paged_attention.applies(be.use_kernels, k_pool.device,
+                                          k_pool.dtype, k_pool.shape[3]))
+    fn = paged_attention.paged_attention if kernel else \
+        paged_attention.paged_attention_plain
+    with obs.span("model.paged_attend", ranged=False,
+                  path="kernel" if kernel else "plain"):
+        return fn(q, k_pool, v_pool, block_table, q_pos, scale=scale,
+                  window=window, decode_from=decode_from)
 
 
 def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
@@ -273,7 +240,8 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
       paged:   ``paged_kv = (k_pool, v_pool, block_table, q_pos (B, C),
                decode_from (B,) or None)``; writes the chunk's K/V into
                the pools through the block table (in place), attends over
-               the gathered pool; returns y.
+               the pool through the table (:func:`paged_attend`); returns
+               y.
       cross:   ``cross_kv = (k, v)`` (B, Hkv, S_src, hd), projected from
                the encoder's states; only q is projected, and neither q
                nor k is roped; every query attends every key through
@@ -309,7 +277,7 @@ def attention(p, x, be: Policy, cfg: ModelConfig, *, causal: bool = True,
                           k.transpose(1, 2).to(k_pool.dtype))
         v_pool.index_put_((blk[..., None], heads, off[..., None]),
                           v.transpose(1, 2).to(v_pool.dtype))
-        y = paged_attend(q, k_pool, v_pool, bt, qpos, window=window,
+        y = paged_attend(q, k_pool, v_pool, bt, qpos, be, window=window,
                          scale=scale, decode_from=decode_from)
         return mm(_merge_heads(y), p.wo, be)
     if kv_cache is not None:
@@ -446,8 +414,8 @@ def _moe_combine_groups(out_buf, meta, T: int, k: int):
                       out_buf.new_zeros(G, 1, d)], 1)
     gi = torch.arange(G, device=out_buf.device)[:, None]
     rows = flat[gi, slot_flat].reshape(G, T, k, d)
-    return _f32_einsum("gtkd,gtk->gtd", rows,
-                       top_p.to(rows.dtype)).to(rows.dtype)
+    return ref.f32_einsum("gtkd,gtk->gtd", rows,
+                          top_p.to(rows.dtype)).to(rows.dtype)
 
 
 def _moe_combine(out_buf, meta, T: int, k: int):

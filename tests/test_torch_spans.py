@@ -175,9 +175,10 @@ def _chain(recs, i):
 
 def test_paged_engine_spans_nest_as_the_layers():
     """A CPU PagedEngine run under a CPU profiler: serve.step > serve.decode
-    > model.call > model.attention / model.mlp > gemm.dispatch, the
-    prefill chunk's model call, the syncs, and a ``waited_us`` on each
-    request's first chunk, once."""
+    > model.call > model.attention / model.mlp > gemm.dispatch, attention
+    over the pool (model.attention > model.paged_attend, the plain path on
+    the CPU), the prefill chunk's model call, the syncs, and a
+    ``waited_us`` on each request's first chunk, once."""
     cfg = configs.get_smoke("olmo-1b")
     eng = _engine(cfg)
     with _cpu_profile():
@@ -197,8 +198,9 @@ def test_paged_engine_spans_nest_as_the_layers():
     assert ("gemm.dispatch", "model.head", "model.call", "serve.decode",
             "serve.step") in chains
     assert ("serve.sync", "serve.drain", "serve.step") in chains
-    assert ("serve.sync", "model.attention", "model.call", "serve.decode",
-            "serve.step") in chains
+    # the plain paged attention's blocking copy, inside its span
+    assert ("serve.sync", "model.paged_attend", "model.attention",
+            "model.call", "serve.decode", "serve.step") in chains
     assert ("serve.sync", "serve.prefill", "serve.step") in chains
     for r in recs:
         if r.name == "model.call":
@@ -206,6 +208,10 @@ def test_paged_engine_spans_nest_as_the_layers():
             assert recs[r.parent].name == "serve." + r.attrs["which"]
         if r.name in ("model.attention", "model.mlp"):
             assert 0 <= r.attrs["layer"] < cfg.n_layers
+        if r.name == "model.paged_attend":
+            assert r.attrs == {"path": "plain"}          # the CPU
+            assert recs[r.parent].name == "model.attention"
+    assert names["model.paged_attend"] == names["model.attention"]
     per_call = names["model.attention"] / names["model.call"]
     assert per_call == cfg.n_layers
     # one serve.step a step() call, every span closed, in its parent
