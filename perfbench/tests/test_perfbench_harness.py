@@ -54,6 +54,10 @@ def test_every_cell_finds_its_files_and_metrics(bench):
         assert mix["kind"] in ("serve", "train")
         assert spec.limits(w["name"])
         assert doc["name"] == w["config"]
+        # the family's hooks and the plain reference, found by name
+        assert spec.family(doc["family"]).__file__ == \
+            str(BENCH / "families" / f"{doc['family']}.py")
+        assert (BENCH / "reference" / f"{doc['reference']}.py").is_file()
         reported = {m["name"] for m in spec.metrics_of(bench, "end_to_end",
                                                        w["name"])}
         assert "setup_s" in reported and len(reported) >= 2

@@ -1,9 +1,12 @@
-"""Work counts held to hand-worked figures."""
+"""Work counts held to hand-worked figures, and to the figures they gave
+before the dense counts moved into ``families/dense.py``."""
 import json
 import pathlib
 
+import numpy as np
 import pytest
 
+from perfbench import spec
 from perfbench.work import counts
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
@@ -63,3 +66,35 @@ def test_train_step():
     assert len(g) == 112 * 4 + 3
     assert counts.gemms_flops(g) == pytest.approx(
         2 * 16384 * (1_073_741_824 * 4 + 2048 * 50432 * 3))
+
+
+def _summed(gemms):
+    """Length, the sums of M, K and N, and the operations of a GEMM list."""
+    return (len(gemms), [sum(g[i] for g in gemms) for i in range(3)],
+            counts.gemms_flops(gemms))
+
+
+# olmo-1b's counts as the harness gave them while they lived in
+# work/counts.py
+PINNED = {"pass_gemms": (113, [3616, 329728, 476416], 75329699840.0),
+          "pass_gemms_no_head": (112, [3584, 327680, 425984],
+                                 68719476736.0),
+          "train_step_gemms": (451, [5867520, 2985216, 1708544],
+                               150890791043072.0),
+          "matmul_params": 1177026560.0}
+
+
+@pytest.mark.parametrize("via", ["counts", "family"])
+def test_olmo_counts_are_pinned(via):
+    """Through the names the readers call and through the family file,
+    the counts are those of before the move, to the bit."""
+    d = doc("olmo-1b")
+    src = counts if via == "counts" else spec.family("dense")
+    assert _summed(src.pass_gemms(d, 32)) == PINNED["pass_gemms"]
+    assert _summed(src.pass_gemms(d, 32, head=False)) == \
+        PINNED["pass_gemms_no_head"]
+    assert _summed(src.train_step_gemms(d, 8, 2048)) == \
+        PINNED["train_step_gemms"]
+    assert src.matmul_params(d) == PINNED["matmul_params"]
+    # every position of the chat cell's longest request
+    assert counts.tokens_flops(d, np.arange(1152)) == 2798917779456.0

@@ -20,6 +20,7 @@ place, and the check judges theirs.
 from __future__ import annotations
 
 import gc
+import importlib
 import math
 import statistics
 import time
@@ -29,7 +30,6 @@ import torch
 
 from perfbench import gen, program, weights
 from perfbench import trace as tr
-from perfbench.reference import dense
 
 
 def _seeded_leaves(doc, seed: int, device):
@@ -139,13 +139,15 @@ def run(doc: Dict[str, Any], mix: Dict[str, Any], limits: Dict[str, float],
 
     batches = [gen.train_batch(mix, seed, j, V, device)
                for j in range(mix["check_steps"])]
-    ref = dense.train_steps(doc, seed, batches, mix["optimizer"],
-                            mix["z_loss"], device)
+    reference = importlib.import_module(
+        f"perfbench.reference.{doc['reference']}")
+    ref = reference.train_steps(doc, seed, batches, mix["optimizer"],
+                                mix["z_loss"], device)
     gaps = judged = compare(prog, ref)
     if control:
         # the reference in fp8 stands in the program's place
-        low = dense.train_steps(doc, seed, batches, mix["optimizer"],
-                                mix["z_loss"], device, num="fp8")
+        low = reference.train_steps(doc, seed, batches, mix["optimizer"],
+                                    mix["z_loss"], device, num="fp8")
         judged = compare(low, ref)
     checks = [(k, judged[k], limits[k]) for k in ("loss_gap", "grad_gap",
                                                   "change_gap")]

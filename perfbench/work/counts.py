@@ -6,7 +6,9 @@ input byte once and each output byte once: (M K + K N + M N) elements of
 the configuration's dtype.  Its least time on the card is the larger of
 operations over the peak rate and bytes over the memory rate
 (``peaks.json``).  The count is of the work, whatever implements it: a
-GEMM that moves from one kernel to another keeps its count.
+GEMM that moves from one kernel to another keeps its count.  Which GEMMs
+a pass or a train step needs is the configuration's family's
+(``perfbench/families/<family>.py``); the arithmetic on them is here.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import pathlib
 from typing import List, Tuple
 
 import numpy as np
+
+from perfbench import spec
 
 PEAKS = json.loads((pathlib.Path(__file__).resolve().parent
                     / "peaks.json").read_text())
@@ -40,23 +44,10 @@ def bound_s(flops: float, nbytes: float, peaks=PEAKS) -> float:
     return max(flops / peaks["bf16_flops"], nbytes / peaks["hbm_bytes_per_s"])
 
 
-def layer_projections(doc) -> List[Tuple[int, int]]:
-    """(K, N) of one layer's dense projections: q, k, v, o, and the MLP's
-    gate, up and down."""
-    d, H, Hkv, hd, ff = (doc["d_model"], doc["n_heads"], doc["n_kv_heads"],
-                         doc["head_dim"], doc["d_ff"])
-    return [(d, H * hd), (d, Hkv * hd), (d, Hkv * hd), (H * hd, d),
-            (d, ff), (d, ff), (ff, d)]
-
-
 def pass_gemms(doc, rows: int, head: bool = True) -> List[Gemm]:
-    """The dense GEMMs of one model pass over ``rows`` token rows: every
-    layer's projections, then the vocabulary head."""
-    per = layer_projections(doc)
-    g = [(rows, K, N) for _ in range(doc["n_layers"]) for K, N in per]
-    if head:
-        g.append((rows, doc["d_model"], doc["vocab_rows"]))
-    return g
+    """The GEMMs of one model pass over ``rows`` token rows, as the
+    configuration's family counts them."""
+    return spec.family(doc["family"]).pass_gemms(doc, rows, head)
 
 
 def gemms_bound_s(gemms: List[Gemm], e: int) -> float:
@@ -72,10 +63,9 @@ def gemms_weight_bytes(gemms: List[Gemm], e: int) -> float:
 
 
 def matmul_params(doc) -> float:
-    """Parameters one token multiplies: every layer's projections and the
-    head."""
-    n = sum(K * N for K, N in layer_projections(doc)) * doc["n_layers"]
-    return float(n + doc["d_model"] * doc["vocab_rows"])
+    """Parameters one token multiplies, as the configuration's family
+    counts them."""
+    return spec.family(doc["family"]).matmul_params(doc)
 
 
 def tokens_flops(doc, pos) -> float:
@@ -98,18 +88,6 @@ def train_step_flops(doc, batch: int, seq: int) -> float:
 
 
 def train_step_gemms(doc, batch: int, seq: int) -> List[Gemm]:
-    """Every dense GEMM one train step needs at B x S token rows: each
-    layer's forward projections twice (the forward and, under remat,
-    its recompute), each projection's two backward products (the input's
-    gradient, M x N x K, and the weight's, K x M x N), and the head's
-    forward and two backward products."""
-    M = batch * seq
-    out: List[Gemm] = []
-    layers = [(K, N) for _ in range(doc["n_layers"])
-              for K, N in layer_projections(doc)]
-    times = 2 if doc["remat"] == "full" else 1
-    for K, N in layers:
-        out += [(M, K, N)] * times + [(M, N, K), (K, M, N)]
-    d, V = doc["d_model"], doc["vocab_rows"]
-    out += [(M, d, V), (M, V, d), (d, M, V)]
-    return out
+    """Every GEMM one train step needs at B x S token rows, as the
+    configuration's family counts them."""
+    return spec.family(doc["family"]).train_step_gemms(doc, batch, seq)
