@@ -335,6 +335,12 @@ fails the run:
             The serve phases of the attention families (olmo-1b, moonshot,
             gemma3, glm4, smollm, mixtral) must launch it, and each
             decode step of phase 5 once a layer.
+47. dropless kernels — the ragged kernel at mixtral-8x22b's dropless
+            decode shapes (32 tokens, top-2 of 8, row tiles of 16 with
+            idle tiles at id -1) against the plain version on the live
+            rows; device time against the bytes bound, torch._grouped_mm
+            and the batched kernel at C 16 and C 32 (run after phase 31,
+            attached to the ragged entry's ``slice_shapes``).
 Phase 37 also prints the share of outputs of the IAAT kernel equal to
 the bit to torch.matmul's at the train step's GEMM shapes (a reading,
 not a check).
@@ -1454,7 +1460,8 @@ def phase_grouped_check(torch, mcfg):
     scalar, split and mma paths must each have launched.  Then moonshot's
     decode shapes, which must take mma on the ring, and one token's
     ragged layout, which must also split K.  Returns the max abs errors at the MoE decode shapes
-    and the ragged kernel's launches here (no model calls it)."""
+    and the ragged kernel's launches here (the check's own; the kernel's
+    entry reads those of :func:`phase_dropless_serve`)."""
     from repro_torch.core import kernelgen
     from repro_torch.kernels import grouped_gemm as gg
     _reset_counts()
@@ -3708,6 +3715,176 @@ def phase_slice_kernels(torch, launches):
     return rows
 
 
+def _dropless_cfg():
+    """mixtral-8x22b at :data:`MIXTRAL_LAYERS` layers, routed dropless."""
+    import dataclasses
+    cfg = _mixtral_cfg()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            dropless=True))
+
+
+def phase_dropless_serve(torch, slots=32, max_new=8):
+    """The path of the ``mixtral-8x22b.chat-32`` cell: mixtral-8x22b at
+    :data:`MIXTRAL_LAYERS` layers with ``MoEConfig.dropless`` served on
+    PagedEngine at ``slots`` slots under ``auto``, ``slots`` requests,
+    after an uncounted warm-up.  The counts are zeroed just before the
+    counted run, which runs inside ``obs.capture()``: every model call's
+    ``model.call`` span and every layer's ``model.moe`` span is counted.
+    Every expert GEMM must be a ragged launch on the mma ring, three a
+    MoE layer and model call, with no batched launch; paged attention
+    one launch a layer and call; every IAAT launch on the ring.  The
+    device tally ``moe`` gives the run's row use.  Returns the counts."""
+    from repro_torch import obs
+    from repro_torch.launch import serve as serve_mod
+    cfg = _dropless_cfg()
+    params = serve_mod.serve(MIXTRAL_ARCH, requests=1, max_new=2,
+                             backend="auto", seed=0, device="cuda",
+                             cfg=cfg)["params"]
+    _reset_counts()
+    obs.reset()
+    with obs.capture():
+        r = serve_mod.serve(MIXTRAL_ARCH, requests=slots, slots=slots,
+                            max_new=max_new, block_size=16, backend="auto",
+                            seed=0, device="cuda", params=params, cfg=cfg)
+    launches = _counts()
+    recs = obs.spans()
+    tally = obs.tallies().get("moe", {})
+    drops = obs.span_drops()
+    obs.reset()
+    del params, r["params"]
+    _free(torch)
+    done = r["done"]
+    if sorted(done) != list(range(slots)):
+        raise AssertionError(f"dropless serve: served {sorted(done)}, want "
+                             f"{slots} requests")
+    for rid, toks in done.items():
+        if not 1 <= len(toks) <= max_new or not all(
+                0 <= t < cfg.vocab_padded for t in toks):
+            raise AssertionError(f"dropless serve: request {rid}: bad "
+                                 f"tokens {toks}")
+    if drops:
+        raise AssertionError(f"dropless serve: {drops} span records dropped")
+    calls = {w: sum(1 for s in recs if s.name == "model.call"
+                    and (s.attrs or {}).get("which") == w)
+             for w in ("decode", "prefill")}
+    n_calls = sum(calls.values())
+    moe_calls = sum(1 for s in recs if s.name == "model.moe")
+    want = {"model.moe spans": cfg.n_layers * n_calls,
+            "ragged_gemm": 3 * moe_calls, "grouped_mma": 3 * moe_calls,
+            "batched_gemm": 0, "grouped_scalar": 0,
+            "paged_attention": cfg.n_layers * n_calls,
+            "iaat_scalar": 0, "iaat_ring": launches["iaat_gemm"]}
+    got = {"model.moe spans": moe_calls, **{k: launches[k] for k in want
+                                            if k in launches}}
+    if not n_calls or got != want:
+        raise AssertionError(f"dropless serve: {n_calls} model calls "
+                             f"{calls}, counts {got}, want {want}")
+    out = {"slots": slots, "layers": cfg.n_layers, "tokens": r["tokens"],
+           "seconds": r["seconds"], "tok_s": r["tok_s"],
+           "decode_steps": r["decode_steps"], "model_calls": calls,
+           "moe_calls": moe_calls, "launches": launches["ragged_gemm"],
+           "launch_counts": launches, "tally": tally,
+           "row_use_pct": 100.0 * tally["pairs"] / tally["tile_rows"]
+           if tally.get("tile_rows") else None}
+    log(f"dropless serve {MIXTRAL_ARCH} ({cfg.n_layers} layers, {slots} "
+        f"slots, auto): {r['tokens']} tokens in {r['seconds']:.3f}s = "
+        f"{r['tok_s']:.2f} tok/s, model calls {json.dumps(calls)}, "
+        f"{moe_calls} MoE layer calls, ragged launches "
+        f"{launches['ragged_gemm']} (3 a MoE layer and call), batched "
+        f"{launches['batched_gemm']}, paged {launches['paged_attention']}, "
+        f"tally {json.dumps(tally)}, row use {out['row_use_pct']}")
+    return out
+
+
+def phase_dropless_kernels(torch, slots=32, seed=43, serve=None):
+    """The ragged kernel at mixtral-8x22b's dropless decode shapes: one
+    decode step of ``slots`` tokens, top-2 of 8 drawn uniformly from the
+    seed, laid out by ``layers.tile_table`` in row tiles of
+    ``layers.dropless_tile`` (16 at 32 tokens), the tiles past the live
+    ones idle (id -1).  For gate/up (6144 -> 16384) and down (16384 ->
+    6144): the live rows against the plain version (``TOL["H"]``), loop
+    and device times (the profiler's ``grouped_gemm_kernel`` time), the
+    bound (each touched expert's matrix read once, the routed rows in
+    and out, bf16, against 3.35 TB/s), ``torch._grouped_mm`` over the
+    live tiles, and the batched kernel at capacity C 16 and C 32 (the
+    layout the dropless tiles replace at 16 and 32 slots).  Each row
+    carries ``serve_launches``, the ragged launches of
+    :func:`phase_dropless_serve` (``serve``, its counts).  Returns the
+    rows."""
+    from repro_torch.core import cost
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.models import layers
+    mix = _dropless_cfg()
+    E, k = mix.moe.num_experts, mix.moe.top_k
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    top_e = torch.stack([torch.randperm(E, generator=g, device="cuda")[:k]
+                         for _ in range(slots)])
+    bm = layers.dropless_tile(slots, mix.moe)
+    ids, _rows, inv, counts, tiles = layers.tile_table(top_e, E, bm)
+    live, touched = int(tiles.sum()), int((counts > 0).sum())
+    rows_out = []
+    for K, N in _grouped_decode_shapes(mix):
+        tok = torch.randn((slots + 1, K), generator=g, device="cuda").to(bf)
+        tok[slots] = 0
+        x = tok[inv]
+        w = (torch.randn((E, K, N), generator=g, device="cuda") /
+             math.sqrt(K)).to(bf)
+        blocks = gg.pick_blocks(bm, K, N, bf)
+
+        def run(i):
+            return gg.ragged_gemm(x, w, ids, bm=bm, blocks=blocks,
+                                  idle_tiles=True)
+        got = run(0)[:live * bm]
+        _, rel = _rel_err(got, gg.ragged_gemm_plain(x, w, ids, bm)[
+            :live * bm])
+        if not rel <= TOL["H"]:
+            raise AssertionError(f"ragged_gemm idle tiles K={K} N={N}: rel "
+                                 f"err {rel}")
+        lib, lib_out = _grouped_mm_library(torch, x[:live * bm], w,
+                                           ids[:live], bm)
+        xc = {C: torch.randn((E, C, K), generator=g, device="cuda").to(bf)
+              for C in (16, 32)}
+        t = {"ms": _time_ms(torch, run, 20),
+             "device_ms": _device_ms(torch, run, 10,
+                                     "grouped_gemm_kernel")[0],
+             "grouped_mm_device_ms": None if lib is None else _device_ms(
+                 torch, lambda i: lib(), 10)[0],
+             "grouped_mm": None if lib is not None else lib_out}
+        for C, xb in xc.items():
+            cb = gg.pick_blocks(C, K, N, bf)
+            t[f"batched_C{C}_device_ms"] = _device_ms(
+                torch, lambda i: gg.batched_gemm(xb, w, blocks=cb), 10,
+                "grouped_gemm_kernel")[0]
+        nbytes = 2 * (touched * K * N + slots * k * (K + N))
+        flops = 2 * slots * k * K * N
+        t_ops, t_bytes = flops / cost.PEAK_FLOPS_BF16, nbytes / cost.HBM_BW
+        path, slices = gg.launch_plan(x, w, blocks, tile=bm)
+        row = {"kernel": "ragged_gemm", "at": f"{mix.name} dropless decode",
+               "G": E, "bm": bm, "tiles": ids.numel(), "live": live,
+               "touched": touched, "K": K, "N": N, **t,
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "path": path, "slices": slices, "rel_err": rel,
+               "serve_launches": None if serve is None else
+               serve["launches"],
+               "serve_launches_at": None if serve is None else
+               f"{mix.name} dropless paged serve, {serve['slots']} slots, "
+               f"{serve['layers']} layers, auto: 3 a MoE layer and call"}
+        if row["device_ms"]:
+            row["roofline_pct"] = 100.0 * row["bound_ms"] / row["device_ms"]
+        log(f"kernel time ragged_gemm {mix.name} dropless H {E} experts, "
+            f"{live} of {ids.numel()} tiles of {bm} live, K={K} N={N} "
+            f"({path}, {slices} K slices): device {t['device_ms']} ms, loop "
+            f"{t['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, "
+            f"torch._grouped_mm device {t['grouped_mm_device_ms']} ms, "
+            f"batched C 16 {t['batched_C16_device_ms']} ms, C 32 "
+            f"{t['batched_C32_device_ms']} ms; serve launches "
+            f"{row['serve_launches']}")
+        rows_out.append(row)
+    return rows_out
+
+
 # --------------------------------------------------------------------------
 # The enc-dec family (seamless-m4t-large-v2) and forward_train for the
 # attention families.
@@ -5707,7 +5884,7 @@ def main():
                                      cfg)
         report["serve_shards"] = timed("serve shards", phase_serve_shards,
                                        torch, cfg)
-        grouped_err, ragged_launches = timed("grouped check",
+        grouped_err, _ = timed("grouped check",
                                              phase_grouped_check, torch, mcfg)
         report["moe_serve"], params = timed(
             "moe serve", phase_serve, torch, MOE_ARCH, mcfg, 5, 8,
@@ -5738,6 +5915,8 @@ def main():
                                   MIXTRAL_ARCH, _mixtral_cfg(), 5, 8,
                                   ("batched_gemm", "iaat_gemm",
                                    "paged_attention"))
+        report["dropless_serve"] = timed("dropless serve",
+                                         phase_dropless_serve, torch)
         report["zamba2"] = timed("zamba2", phase_zamba2, torch,
                                  configs.get_config(ZAMBA_ARCH))
         report["vlm"] = timed("vlm", phase_vlm, torch,
@@ -5746,11 +5925,19 @@ def main():
                                  configs.get_config(ENCDEC_ARCH))
         entry, rows = timed("kernels", phase_kernels, torch, cfg,
                             report["serve"]["auto"]["launches"], max_err)
+        # each kernel's launches on the serving path that runs it: the
+        # capacity layout's batched launches in moonshot's serve, the
+        # dropless layout's ragged ones in mixtral's at the cell's slots
+        dropless = report["dropless_serve"]
         launches = {"batched_gemm": report["moe_serve"]["auto"]["launches"],
-                    "ragged_gemm": ragged_launches}
+                    "ragged_gemm": dropless["launches"]}
         grouped, grouped_rows = timed("grouped kernels",
                                       phase_grouped_kernels, torch, mcfg,
                                       launches, grouped_err)
+        grouped[1]["launches_at"] = (
+            f"{MIXTRAL_ARCH} dropless paged serve, {dropless['slots']} "
+            f"slots, {dropless['layers']} layers, auto: 3 a MoE layer and "
+            "model call")
         wave = report["wave_serve"]["auto"]
         flash, flash_rows = timed(
             "flash kernels", phase_flash_kernels, torch, cfg,
@@ -5777,6 +5964,9 @@ def main():
                 MIXTRAL_ARCH: report["mixtral"]["serve"]["auto"][
                     "launch_counts"]["batched_gemm"]},
             "ssd_scan": {ZAMBA_ARCH: zam["launch_counts"]["ssd_scan"]}})
+        slice_rows["ragged_gemm"] = timed(
+            "dropless kernels", phase_dropless_kernels, torch, 32, 43,
+            dropless)
         sm = report["encdec"]["greedy"][f"auto B{ENCDEC_B}"]
         encdec_rows = timed("encdec kernels", phase_encdec_kernels, torch, {
             "iaat_gemm": {ENCDEC_ARCH: sm["prefill_launch_counts"][

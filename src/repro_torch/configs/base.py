@@ -28,6 +28,10 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_z_loss: float = 1e-3
     aux_loss: float = 1e-2
+    # routing drops no (token, expert) pair: serving steps compute each
+    # expert's rows in sorted row tiles (``layers.moe``), every other
+    # call at capacity E / k, and ``capacity_factor`` is not read
+    dropless: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

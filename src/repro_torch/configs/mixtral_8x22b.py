@@ -1,5 +1,12 @@
 """mixtral-8x22b [moe] — 56L d_model=6144 48H (GQA kv=8) d_ff=16384
-vocab=32768, MoE 8e top-2, SWA.  [arXiv:2401.04088; hf]"""
+vocab=32768, MoE 8e top-2.
+
+Source: the model card and ``config.json`` of mistralai/Mixtral-8x22B-v0.1
+(Mistral AI, April 2024), whose ``sliding_window`` is null: the 8x22B
+release attends over its full 65,536 positions.  The ``swa`` window of
+4096 here is this repository's own, kept as the reference package has
+it.  arXiv:2401.04088 gives the block's equations, for the 8x7B sibling
+only."""
 import dataclasses
 
 from repro_torch.configs.base import AttentionPattern, ModelConfig, MoEConfig

@@ -51,8 +51,11 @@
 // scalar-prefetched) times w's group stride.  Rows past the tile (a
 // ragged tile of 8 under the 16-row grain, a group of C < BM), columns
 // past N and the K tail are zero-filled on load and not stored, which
-// replaces the TPU kernel's iota K mask.  The wrapper checks every id is
-// in [0, G) before the launch.
+// replaces the TPU kernel's iota K mask.  A ragged tile whose id is -1
+// is idle: its blocks exit before they load anything, so a table sized
+// for the worst case (the dropless MoE layer's) streams only the live
+// tiles' weights.  Unless the caller allows idle tiles, the wrapper
+// checks every id is in [0, G) before the launch.
 //
 // Built by repro_torch/kernels/build.py beside iaat_gemm.cu: one object per
 // letter (-DIAAT_LETTER=0 S, 1 D, 2 H) and path (-DIAAT_MODE=0 scalar,
@@ -114,6 +117,10 @@ grouped_gemm_kernel(const T* __restrict__ X, int64_t x_st, int64_t x_sr,
   const int t = blockIdx.z, r0 = blockIdx.y * BM;
   const int rows = min(BM, tile - r0);
   const int64_t g = gids != nullptr ? gids[t] : t;
+  // an idle ragged tile (id -1: past the live tiles of a table sized for
+  // the worst case) loads, multiplies and stores nothing; every block of
+  // it leaves here, so its split ticket is never taken
+  if (g < 0) return;
   const T* Xb = X + t * x_st + r0 * x_sr;
   const T* Wb = W + g * w_sg;
   T* Ob = O + t * o_st + r0 * o_sr;

@@ -112,11 +112,14 @@ def batched_gemm_plain(x, w):
 
 def ragged_gemm_plain(x, w, tile_group_ids, bm: int):
     """Row tile t of x (rows [t*bm, (t+1)*bm)) @ w[tile_group_ids[t]], in
-    the accumulator dtype, one cast."""
+    the accumulator dtype, one cast; a tile whose id is negative (idle)
+    gives zero rows."""
     acc, out = _acc_out(x, w)
     T, K = x.shape
-    wt = w[tile_group_ids.long()]                     # (T // bm, K, N)
+    ids = tile_group_ids.long()
+    wt = w[ids.clamp(min=0)]                          # (T // bm, K, N)
     prod = torch.matmul(x.reshape(-1, bm, K).to(acc), wt.to(acc))
+    prod = torch.where((ids >= 0)[:, None, None], prod, 0)
     return prod.reshape(T, w.shape[-1]).to(out)
 
 
@@ -302,12 +305,19 @@ def batched_gemm(x: torch.Tensor, w: torch.Tensor, *,
 
 def ragged_gemm(x: torch.Tensor, w: torch.Tensor,
                 tile_group_ids: torch.Tensor, *, bm: int = 128,
-                blocks: Optional[Tuple[int, int, int]] = None
-                ) -> torch.Tensor:
+                blocks: Optional[Tuple[int, int, int]] = None,
+                idle_tiles: bool = False) -> torch.Tensor:
     """x (T, K) group-contiguous (each group padded to ``bm`` rows, the
     padding zeroed); w (G, K, N); tile_group_ids (T // bm,) mapping each
     row tile to its group.  Returns (T, N).  Every id must be in [0, G):
-    it is checked here, before any launch (one device-to-host read)."""
+    it is checked here, before any launch (one device-to-host read).
+
+    ``idle_tiles``: an id may also be -1, an idle tile, whose CUDA blocks
+    exit before they load anything and whose output rows are left as
+    ``torch.empty`` made them (zero in the plain version), so the caller
+    reads none of them; the ids are the caller's to keep in [-1, G) and
+    are not read on the host (a table built on the device, sized for the
+    worst case, costs no sync)."""
     T, K = x.shape
     G, Kw, N = w.shape
     if K != Kw:
@@ -318,7 +328,7 @@ def ragged_gemm(x: torch.Tensor, w: torch.Tensor,
     if tuple(tile_group_ids.shape) != (T // bm,):
         raise ValueError(f"tile_group_ids {tuple(tile_group_ids.shape)} != "
                          f"({T // bm},)")
-    if tile_group_ids.numel():
+    if tile_group_ids.numel() and not idle_tiles:
         lo, hi = (int(v) for v in torch.aminmax(tile_group_ids))
         if lo < 0 or hi >= G:
             raise ValueError(f"tile_group_ids in [{lo}, {hi}], not in "

@@ -26,6 +26,7 @@ from repro_torch import api, obs
 from repro_torch.api import Policy
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention, paged_attention, ref
+from repro_torch.kernels import grouped_gemm as _gg
 from repro_torch.models.common import mm, rope
 from repro_torch.parallel import spmd
 from repro_torch.parallel.ctx import constrain, moe_shard_count
@@ -328,7 +329,10 @@ def init_moe(cfg: ModelConfig, ninit):
 
 
 def _capacity(T: int, m) -> int:
-    c = int(math.ceil(T * m.top_k / m.num_experts * m.capacity_factor))
+    """Rows an expert takes of T tokens: T k / E times the capacity
+    factor, E / k where routing is dropless (C = T: no pair can drop)."""
+    cf = m.num_experts / m.top_k if m.dropless else m.capacity_factor
+    c = int(math.ceil(T * m.top_k / m.num_experts * cf))
     # the reference's grain: 128-multiples from 128 on, else 8-multiples
     grain = 128 if c >= 128 else 8
     return max(grain, -(c // -grain) * grain)
@@ -340,6 +344,17 @@ def _top_k(probs, k: int):
     unspecified)."""
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def _route(router, x2, k: int):
+    """x2 (T, d) -> (logits, probs (T, E), top_p, top_e (T, k)): the f32
+    router (an f32 matmul, TF32 off: not a routed GEMM), the softmax over
+    the experts, the stable top-k, renormalised."""
+    logits = torch.matmul(x2.float(), router)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, top_p, top_e
 
 
 def _moe_dispatch_groups(router, xg, cfg: ModelConfig, C: int):
@@ -359,11 +374,7 @@ def _moe_dispatch_groups(router, xg, cfg: ModelConfig, C: int):
     E, k = m.num_experts, m.top_k
     dev = xg.device
 
-    # the router stays f32 (an f32 matmul, TF32 off): not a routed GEMM
-    logits = torch.matmul(xg.reshape(G * T, d).float(), router)   # (GT, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, k)                               # (GT, k)
-    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    logits, probs, top_p, top_e = _route(router, xg.reshape(G * T, d), k)
     logits, probs = logits.reshape(G, T, E), probs.reshape(G, T, E)
 
     flat_e = top_e.reshape(G, T * k)
@@ -531,7 +542,117 @@ def _sharded_moe(p, x, be: Policy, cfg: ModelConfig, G: int):
     return yg.to(x.dtype).reshape(B, S, d), aux.mean()
 
 
-def moe(p, x, be: Policy, cfg: ModelConfig):
+# -- dropless serving: each expert's rows in sorted row tiles ---------------
+
+#: the fields of the dropless layer's device tally (``obs.tally("moe")``,
+#: summed over the captured calls): (token, expert) pairs routed, live
+#: row tiles, tile rows computed (live tiles x bm), experts that needed a
+#: second tile, experts that got a row
+MOE_TALLY = ("pairs", "live_tiles", "tile_rows", "second_tiles",
+             "experts_touched")
+
+
+def dropless_tile(T: int, m) -> int:
+    """The row tile ``bm`` of a dropless call over T tokens: twice the
+    mean rows an expert gets (T k / E), up to a multiple of 8, so that
+    one tile nearly always holds an expert's rows: 16 at T 32 with top-2
+    of 8 (an expert's count is about Binomial(T, k / E), 8 +- 2.4 there,
+    past 16 for 6 experts in 10,000)."""
+    return 8 * max(1, -(-2 * T * m.top_k // (8 * m.num_experts)))
+
+
+def tile_table(top_e, E: int, bm: int):
+    """The sorted-tile layout of one call's (token, expert) pairs, built
+    on the device with no read back.  top_e (T, k) ->
+
+      ids   (n,)       int32: the expert of each row tile; -1 past the
+                       live ones (idle tiles);
+      rows  (T k,)     the tile row of each pair, token-major;
+      inv   (n bm,)    the token each tile row reads (T: a zero row);
+      counts, tiles (E,): each expert's pairs and row tiles.
+
+    Pairs sort by expert (stable, so tokens keep their order inside an
+    expert); expert e takes ceil(c_e / bm) consecutive tiles.  The table
+    holds n = E + ceil(T k / bm) tiles, at least sum_e ceil(c_e / bm)
+    for any counts (each ceiling adds less than one tile), so its size
+    is known on the host before any count is."""
+    T, k = top_e.shape
+    dev = top_e.device
+    flat = top_e.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    se = flat[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, flat, torch.ones_like(flat))
+    tiles = torch.div(counts + (bm - 1), bm, rounding_mode="floor")
+    end = torch.cumsum(tiles, 0)
+    n = E + -(-T * k // bm)
+    # the expert whose tiles cover tile t: the experts ending at or
+    # before it; E (idle) past the last live tile
+    ids = torch.searchsorted(end, torch.arange(n, device=dev), right=True)
+    ids = torch.where(ids < E, ids, -1).to(torch.int32)
+    first = torch.cumsum(counts, 0) - counts
+    at = (end - tiles)[se] * bm + torch.arange(T * k, device=dev) - first[se]
+    rows = torch.empty_like(at).scatter_(0, order, at)
+    inv = torch.full((n * bm,), T, dtype=torch.long, device=dev).scatter_(
+        0, at, torch.div(order, k, rounding_mode="floor"))
+    return ids, rows, inv, counts, tiles
+
+
+def _tile_routes(be: Policy, cfg: ModelConfig, bm: int, dtype):
+    """The router's decisions for the three expert GEMMs of a dropless
+    call in row tiles of ``bm`` (gate, up: (bm, d, f); down: (bm, f,
+    d)), or None where the policy's non-GEMM family is the library or
+    the router sends a tile to the library, whose ragged path copies one
+    expert's weights a tile."""
+    if not be.use_kernels:
+        return None
+    m = cfg.moe
+    E, d, f = m.num_experts, cfg.d_model, m.d_expert
+    routes = [api.route("ragged_gemm", (E, bm, K, N), dtype, policy=be)
+              for K, N in ((d, f), (d, f), (f, d))]
+    return routes if all(r.use_kernel for r in routes) else None
+
+
+def _dropless_moe(p, xf, cfg: ModelConfig, bm: int, routes):
+    """xf (T, d) -> y (T, d) through sorted row tiles: route (as the
+    capacity layout does), the tile table (:func:`tile_table`), every
+    pair's row gathered into its tile (padding rows zero), gate, up and
+    down on the ragged kernel (``grouped_gemm.ragged_gemm`` with the
+    router's blocks; idle tiles load nothing) with the SwiGLU between
+    them, then each token's k rows combined with its weights as
+    :func:`_moe_combine` does.  Spans ``model.moe.dispatch``,
+    ``model.moe.experts`` and ``model.moe.combine`` (unranged); inside a
+    capture the call also adds its counts to the device tally ``moe``
+    (:data:`MOE_TALLY`).  No value is read back to the host."""
+    m = cfg.moe
+    T, d = xf.shape
+    E, k = m.num_experts, m.top_k
+    with obs.span("model.moe.dispatch", ranged=False):
+        _, _, top_p, top_e = _route(p.router, xf, k)
+        ids, rows, inv, counts, tiles = tile_table(top_e, E, bm)
+        buf = torch.cat([xf, xf.new_zeros(1, d)])[inv]
+        if obs.capturing():
+            live = tiles.sum()
+            obs.tally("moe", MOE_TALLY, torch.stack([
+                counts.sum(), live, live * bm, (tiles > 1).sum(),
+                (counts > 0).sum()]))
+    with obs.span("model.moe.experts", ranged=False):
+        wg, wu, wd = (w.to(xf.dtype) for w in (p.w_gate, p.w_up, p.w_down))
+        dg, du, dd = routes
+        g = _gg.ragged_gemm(buf, wg, ids, bm=bm, blocks=dg.blocks,
+                            idle_tiles=True)
+        u = _gg.ragged_gemm(buf, wu, ids, bm=bm, blocks=du.blocks,
+                            idle_tiles=True)
+        h = (F.silu(g.float()) * u.float()).to(g.dtype)
+        out = _gg.ragged_gemm(h, wd, ids, bm=bm, blocks=dd.blocks,
+                              idle_tiles=True)
+    with obs.span("model.moe.combine", ranged=False):
+        pair_rows = out[rows].reshape(T, k, d)
+        return ref.f32_einsum("tkd,tk->td", pair_rows,
+                              top_p.to(pair_rows.dtype)).to(pair_rows.dtype)
+
+
+def moe(p, x, be: Policy, cfg: ModelConfig, serving: bool = False):
     """x: (B, S, d) -> (y, aux).
 
     One dispatch over all B*S tokens (padding rows included: they route
@@ -541,13 +662,27 @@ def moe(p, x, be: Policy, cfg: ModelConfig):
     tokens (the reference's guard), the per-data-shard branch: each
     shard routes its T/G tokens at its own capacity, the expert FFN runs
     on the (G, E, C, d) buffer, each shard combines its own tokens, and
-    aux is the shards' mean."""
+    aux is the shards' mean.
+
+    A dropless configuration's ``serving`` calls (a decode step or a
+    prefill chunk; one dispatch group, plain tensors) take sorted row
+    tiles instead (:func:`_dropless_moe`, row tile :func:`dropless_tile`)
+    where the router keeps every tile on the ragged kernel; their aux is
+    0.0, a training term the serving paths drop.  Every other call of a
+    dropless configuration runs the capacity layout at C = T
+    (:func:`_capacity`), which computes the same result."""
     m = cfg.moe
     B, S, d = x.shape
     T, k = B * S, m.top_k
     G = moe_shard_count()
     if spmd.is_dtensor(x):
         return _sharded_moe(p, x, be, cfg, G)
+    if m.dropless and serving and G <= 1:
+        bm = dropless_tile(T, m)
+        routes = _tile_routes(be, cfg, bm, x.dtype)
+        if routes is not None:
+            y = _dropless_moe(p, x.reshape(T, d), cfg, bm, routes)
+            return y.to(x.dtype).reshape(B, S, d), 0.0
     if G <= 1 or T % G or (T // G) % 8:
         buf, meta, aux = _moe_dispatch(p.router, x.reshape(T, d), cfg,
                                        _capacity(T, m))

@@ -459,10 +459,12 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
                       *, kv=None, pos=None, paged_kv=None):
     """attention (with layer ``i``'s window, in the mode ``L.attention``
     picks from ``kv``/``paged_kv``) + mlp/moe.  An MoE block takes the
-    MLP's place.  Returns (y, the block's aux loss (the MoE layer's f32
-    scalar, a Python 0.0 for an MLP block; a training term, which the
-    serving paths drop as the reference's do), the prompt's (k, v) in
-    prefill mode, else None)."""
+    MLP's place (span ``model.moe``); in a serving call (``kv`` or
+    ``paged_kv``) a dropless one takes its row tiles.  Returns (y, the
+    block's aux loss (the MoE layer's f32 scalar, a Python 0.0 for an
+    MLP block or a dropless layer's row tiles; a training term, which
+    the serving paths drop as the reference's do), the prompt's (k, v)
+    in prefill mode, else None)."""
     with obs.span("model.attention", ranged=False, layer=i):
         h = rmsnorm(x, blk.ln1, cfg.norm_eps)
         out = L.attention(blk.attn, h, be, cfg,
@@ -475,7 +477,9 @@ def _apply_attn_block(blk: Block, x, be: Policy, cfg: ModelConfig, i: int,
         h2 = rmsnorm(x, blk.ln2, cfg.norm_eps)
         aux = 0.0
         if blk.moe is not None:
-            y, aux = L.moe(blk.moe, h2, be, cfg)
+            with obs.span("model.moe", ranged=False, layer=i):
+                y, aux = L.moe(blk.moe, h2, be, cfg,
+                               serving=kv is not None or paged_kv is not None)
         else:
             y = L.mlp(blk.mlp, h2, be)
         return x + y, aux, kv_out

@@ -2,8 +2,10 @@
 
 A metric registry (:class:`Counter`, :class:`Gauge`, log-bucket
 :class:`Histogram` with p50/p95/p99), the span recorder (:func:`span`,
-:func:`capture`, :func:`spans`), the Router's shape log and decision memo
-:data:`ROUTES` (with :meth:`RouteLog.windowed`, the online tuner's feed),
+:func:`capture`, :func:`spans`), device tallies (:func:`tally`,
+:func:`tallies`: counts summed on the device, read once), the Router's
+shape log and decision memo :data:`ROUTES` (with
+:meth:`RouteLog.windowed`, the online tuner's feed),
 and the flight recorder :data:`TRACE` (its reducer and Perfetto export in
 :mod:`.trace`).  ``python -m repro_torch.obs`` prints the live registry
 and re-exports a trace.
@@ -35,7 +37,8 @@ from torch.autograd import profiler as _profiler
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "REGISTRY", "ROUTES",
     "TRACE", "counter", "gauge", "histogram", "span", "capture",
-    "capturing", "mark", "spans", "span_drops", "SpanRecord", "enabled",
+    "capturing", "mark", "spans", "span_drops", "SpanRecord", "tally",
+    "tallies", "enabled",
     "set_enabled", "report_str", "reset",
 ]
 
@@ -281,11 +284,12 @@ def histogram(name: str, **labels) -> Histogram:
 
 
 def reset() -> None:
-    """Clear every metric, the route log, the span buffer AND the flight
-    recorder."""
+    """Clear every metric, the route log, the span buffer, the device
+    tallies AND the flight recorder."""
     REGISTRY.reset()
     ROUTES.reset()
     _REC.reset()
+    _TALLIES.clear()
     TRACE.reset()
 
 
@@ -488,6 +492,40 @@ def spans() -> List[SpanRecord]:
 def span_drops() -> int:
     """Records the full buffer refused since the last :func:`reset`."""
     return _REC.drops
+
+
+# --------------------------------------------------------------------------
+# Device tallies: counts a step computes on the device, summed there.
+# --------------------------------------------------------------------------
+
+class _Tally:
+    __slots__ = ("fields", "sums", "calls")
+
+    def __init__(self, fields: Tuple[str, ...], sums: torch.Tensor) -> None:
+        self.fields, self.sums, self.calls = fields, sums, 0
+
+
+_TALLIES: Dict[str, _Tally] = {}
+
+
+def tally(name: str, fields: Tuple[str, ...], values: torch.Tensor) -> None:
+    """Add ``values`` (one integer a field, on the device the step runs
+    on) into the tally ``name``: one device add, never a read, so a step
+    that tallies waits for nothing.  Call it where :func:`capturing`
+    holds: a tally then covers the captured steps (the traced slice)."""
+    t = _TALLIES.get(name)
+    if t is None:
+        t = _TALLIES[name] = _Tally(fields, torch.zeros(
+            len(fields), dtype=torch.int64, device=values.device))
+    t.sums.add_(values)
+    t.calls += 1
+
+
+def tallies() -> Dict[str, Dict[str, int]]:
+    """Each tally by field, with its number of calls under ``calls``:
+    one copy to the host a tally, which waits for the device."""
+    return {name: dict(zip(t.fields, t.sums.tolist()), calls=t.calls)
+            for name, t in list(_TALLIES.items())}
 
 
 # --------------------------------------------------------------------------
